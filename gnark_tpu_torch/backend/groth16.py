@@ -1,0 +1,336 @@
+"""Groth16 Prove on the card (BN254), and the keys it takes.
+
+Counterpart of gnark_tpu.backend.groth16 for the prover path without a
+mesh (reference backend/groth16/bn254/prove.go):
+
+  witness solve (host, native solver) -> upload of the solver's raw
+  words -> computeH = 3 iFFT + 3 coset FFT + pointwise (a*b - c)*den +
+  coset iFFT (kernels K2, K1) -> four G1 MSMs and one G2 MSM (kernels
+  K4, K3) -> affine conversion of the five results and the small
+  combination with r, s (host ints).
+
+Setup and Verify are not ported (they need fixed-base MSM and the
+pairing); keys come from `dummy_setup`, or from the reference's setup
+through `proving_key_from_arrays`. BSB22 commitments are not supported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import secrets
+import time
+
+import numpy as np
+import torch
+
+from gnark_tpu_torch.constraint import ConstraintSystem, solve_auto
+from gnark_tpu_torch.cuda import resolve_device
+from gnark_tpu_torch.ec import curves as curves_mod
+from gnark_tpu_torch.ec import host
+from gnark_tpu_torch.ec.fp2 import FF2, get_ff2
+from gnark_tpu_torch.ff import get_ff
+from gnark_tpu_torch.ff.mont_mul import mont_mul
+from gnark_tpu_torch.logger import get_logger
+from gnark_tpu_torch.msm.bucket import msm_proj
+from gnark_tpu_torch.ntt import get_domain
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 1).bit_length() if n & (n - 1) or n == 0 else n
+
+
+@dataclasses.dataclass
+class ProvingKey:
+    curve: curves_mod.Curve
+    domain_n: int
+    # device tensors: (x words, y words, inf bool) affine batches
+    g1_a: tuple          # per wire
+    g1_b: tuple          # per wire
+    g1_z: tuple          # per domain index (n)
+    g1_k: tuple          # per private wire
+    g2_b: tuple          # per wire, over Fp2: x, y (n, 2, nw)
+    # host points
+    g1_alpha: tuple
+    g1_beta: tuple
+    g1_delta: tuple
+    g2_beta: tuple
+    g2_delta: tuple
+    commitment_keys: list = dataclasses.field(default_factory=list)
+
+    @property
+    def device(self) -> torch.device:
+        return self.g1_a[0].device
+
+
+@dataclasses.dataclass
+class VerifyingKey:
+    curve: curves_mod.Curve
+    g1_k: list           # host affine points: publics then commitment wires
+    g2_gamma_neg: tuple
+    g2_delta_neg: tuple
+    e_alpha_beta: tuple  # GT element (precomputed pairing)
+    g1_alpha: tuple
+    g2_beta: tuple
+    g2_gamma: tuple
+    g2_delta: tuple
+    commitment_g2_sigma: list = dataclasses.field(default_factory=list)
+    commitment_pac: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class Proof:
+    ar: tuple            # G1 affine (host ints)
+    krs: tuple           # G1 affine
+    bs: tuple            # G2 affine
+    commitments: list = dataclasses.field(default_factory=list)
+    poks: list = dataclasses.field(default_factory=list)
+
+
+def _g2_field(curve):
+    if not curve.g2_over_fp2:
+        raise NotImplementedError(f"{curve.name}: G2 over Fp is not ported")
+    return get_ff2(curve.fp.name, curve.fp2_nr)
+
+
+def _encode_affine_host(ff, pts, device):
+    """Host affine points (or INF) -> device (x words, y words, inf)."""
+    zero = (0, 0) if isinstance(ff, FF2) else 0
+    xs = [zero if p is host.INF else p[0] for p in pts]
+    ys = [zero if p is host.INF else p[1] for p in pts]
+    inf = torch.tensor([p is host.INF for p in pts], device=device)
+    return (torch.as_tensor(ff.encode_words(xs), device=device),
+            torch.as_tensor(ff.encode_words(ys), device=device), inf)
+
+
+def _proj_to_affine_host(ff, hf, P):
+    """Projective (1, Lw) words on the device -> host affine point."""
+    shape = (1, 2, ff.nw) if isinstance(ff, FF2) else (1, ff.nw)
+    X, Y, Z = (ff.decode_words(a.reshape(shape))[0] for a in P)
+    if isinstance(ff, FF2):
+        X, Y, Z = (tuple(int(c) for c in v) for v in (X, Y, Z))
+    else:
+        X, Y, Z = int(X), int(Y), int(Z)
+    if hf.is_zero(Z):
+        return host.INF
+    zi = hf.inv(Z)
+    return (hf.mul(X, zi), hf.mul(Y, zi))
+
+
+def _sub_words(ff, a, b):
+    return ff.to_words(ff.sub(ff.from_words(a), ff.from_words(b)))
+
+
+def _words_u64(arr_u64, device) -> torch.Tensor:
+    """(..., nl) uint64 host limbs -> (..., 2*nl) int32 device words."""
+    from gnark_tpu_torch.ff.mont import FF
+    return torch.from_numpy(FF.u64_view(arr_u64).view(np.int32)).to(device)
+
+
+def _curve_of_fp(fp_name: str):
+    return next(c for c in curves_mod.CURVES.values()
+                if c.fp.name == fp_name)
+
+
+@functools.lru_cache(maxsize=None)
+def _g1_stage_fn(fr_name: str, fp_name: str, N: int, nb_pub: int,
+                 nbits: int, device: str):
+    """The G1 side of prove: computeH feeding the four G1 MSMs (Ar, Bs1,
+    Krs2, Krs), then the affine conversion. f(...) returns (the four
+    affine host points, h in plain words)."""
+    ffr = get_ff(fr_name)
+    ffp = get_ff(fp_name)
+    hfp = _curve_of_fp(fp_name).host_fp
+    dom = get_domain(ffr, N, device)
+    r2 = torch.as_tensor(ffr.encode_words([ffr.p.R2_mod], mont=False),
+                         device=device)
+    one = torch.as_tensor(ffr.encode_words([1], mont=False), device=device)
+
+    def f(abc_raw, wire_raw, den_m, g1_a, g1_b, g1_z, g1_k, mark=None):
+        mark = mark or (lambda what: None)
+        av, bv, cv = (mont_mul(ffr, abc_raw[i], r2) for i in range(3))
+        ac = dom.fft(dom.ifft(av), coset=True)
+        bc = dom.fft(dom.ifft(bv), coset=True)
+        cc = dom.fft(dom.ifft(cv), coset=True)
+        hval = mont_mul(ffr, _sub_words(ffr, mont_mul(ffr, ac, bc), cc),
+                        den_m)
+        h_plain = mont_mul(ffr, dom.ifft(hval, coset=True), one)
+        mark("computeH")
+        ar = msm_proj(ffp, g1_a, wire_raw, nbits)
+        bs1 = msm_proj(ffp, g1_b, wire_raw, nbits)
+        zp = tuple(a[: N - 1] for a in g1_z)
+        krs2 = msm_proj(ffp, zp, h_plain[: N - 1], nbits)
+        krs = msm_proj(ffp, g1_k, wire_raw[nb_pub:], nbits)
+        mark("g1_msm")
+        aff = [_proj_to_affine_host(ffp, hfp, P)
+               for P in (ar, bs1, krs2, krs)]
+        mark("to_affine")
+        return aff, h_plain
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def _g2_stage_fn(curve_name: str, nbits: int):
+    curve = curves_mod.CURVES[curve_name]
+    ff2 = _g2_field(curve)
+
+    def f(g2_b, wire_raw, mark=None):
+        mark = mark or (lambda what: None)
+        r = msm_proj(ff2, g2_b, wire_raw, nbits)
+        mark("g2_msm")
+        aff = _proj_to_affine_host(ff2, curve.host_g2_field, r)
+        mark("to_affine")
+        return aff
+    return f
+
+
+def prove(cs: ConstraintSystem, pk: ProvingKey, public, secret, rng=None,
+          hint_overrides=None, mesh=None, timings: dict | None = None,
+          device=None):
+    """Groth16 proof of the assignment (public, secret) on `device`
+    (None: the card), where pk must live.
+
+    rng: a random.Random for r and s (default: the secrets module); the
+    same seed as the reference's prove gives the same Proof.
+    timings: if a dict, filled with seconds per phase (solve, upload,
+    computeH, g1_msm, g2_msm, to_affine, combine); the card is
+    synchronized at each phase boundary for this."""
+    if mesh is not None:
+        raise NotImplementedError("prove(mesh=...) is not ported")
+    if cs.commitments or pk.commitment_keys:
+        raise NotImplementedError(
+            "BSB22 commitments are not ported (they need gnark_fs)")
+    curve = pk.curve
+    q = curve.fr.modulus
+    rnd = rng.randrange if rng is not None else \
+        (lambda n: secrets.randbelow(n))
+    device = resolve_device(device)
+    if pk.device != device:
+        raise ValueError(f"the proving key is on {pk.device}, not {device}")
+    log = get_logger("gnark_tpu_torch")
+    t0 = time.perf_counter()
+
+    def mark(what):
+        nonlocal t0
+        if timings is None:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        timings[what] = timings.get(what, 0.0) + t - t0
+        log.debug("prove phase %-10s %.3fs", what, t - t0)
+        t0 = t
+
+    sol = solve_auto(cs, public, secret, hint_overrides=hint_overrides)
+    mark("solve")
+    N = pk.domain_n
+    ffr = get_ff(curve.fr.name)
+    nl = (curve.fr.bits + 63) // 64
+    m64 = (1 << 64) - 1
+    pad = N - len(sol.a)
+    abc_u64 = getattr(sol, "abc_u64", None)
+    if abc_u64 is not None and len(sol.a) == abc_u64.shape[1]:
+        zp = np.zeros((3, pad, abc_u64.shape[2]), dtype=np.uint64)
+        abc_p = np.concatenate([abc_u64, zp], axis=1) if pad else abc_u64
+    else:
+        abc_p = np.zeros((3, N, nl), dtype=np.uint64)
+        for j, col in enumerate((sol.a, sol.b, sol.c)):
+            for i, v in enumerate(col):
+                for li in range(nl):
+                    abc_p[j, i, li] = (v >> (64 * li)) & m64
+    vals_u64 = getattr(sol, "values_u64", None)
+    if vals_u64 is None:
+        vals_u64 = np.zeros((len(sol.values), nl), dtype=np.uint64)
+        for i, v in enumerate(sol.values):
+            for li in range(nl):
+                vals_u64[i, li] = (v >> (64 * li)) & m64
+    abc_raw = _words_u64(abc_p, device)
+    wire_raw = _words_u64(vals_u64, device)
+    den = pow(pow(curve.fr.generator, N, q) - 1, -1, q)
+    den_m = torch.as_tensor(ffr.encode_words([den]), device=device)
+    mark("upload")
+
+    nbits = curve.fr.bits
+    g1_aff, _ = _g1_stage_fn(curve.fr.name, curve.fp.name, N, cs.nb_public,
+                             nbits, str(device))(
+        abc_raw, wire_raw, den_m, pk.g1_a, pk.g1_b, pk.g1_z, pk.g1_k,
+        mark=mark)
+    ar_m, bs1_m, krs2_m, krs_m = g1_aff
+    bs2_m = _g2_stage_fn(curve.name, nbits)(pk.g2_b, wire_raw, mark=mark)
+
+    # --- host combination (tiny) ---
+    f1 = curve.host_fp
+    f2h = curve.host_g2_field
+    r, s = rnd(q), rnd(q)
+    ar = host.ec_add(f1, host.ec_add(f1, ar_m, pk.g1_alpha),
+                     host.ec_mul(f1, pk.g1_delta, r))
+    bs1 = host.ec_add(f1, host.ec_add(f1, bs1_m, pk.g1_beta),
+                      host.ec_mul(f1, pk.g1_delta, s))
+    bs = host.ec_add(f2h, host.ec_add(f2h, bs2_m, pk.g2_beta),
+                     host.ec_mul(f2h, pk.g2_delta, s))
+    krs = host.ec_add(f1, krs_m, krs2_m)
+    krs = host.ec_add(f1, krs, host.ec_mul(f1, pk.g1_delta, (-r * s) % q))
+    krs = host.ec_add(f1, krs, host.ec_mul(f1, ar, s))
+    krs = host.ec_add(f1, krs, host.ec_mul(f1, bs1, r))
+    mark("combine")
+    return Proof(ar=ar, krs=krs, bs=bs)
+
+
+def _words_from_limbs(a) -> np.ndarray:
+    """(..., 2k) 16-bit limbs (the reference's layout) -> (..., k)
+    int32 words."""
+    a = np.asarray(a).astype(np.uint32)
+    return (a[..., 0::2] | (a[..., 1::2] << 16)).view(np.int32)
+
+
+def proving_key_from_arrays(d: dict, curve: str = "bn254",
+                            device=None) -> ProvingKey:
+    """Proving key on the device from plain data: d holds domain_n,
+    g1_a/g1_b/g1_z/g1_k/g2_b as (x, y, inf) numpy arrays in 16-bit limbs
+    ((n, 16) for G1, (n, 2, 16) for G2, Montgomery form), and host-int
+    affine points g1_alpha, g1_beta, g1_delta, g2_beta, g2_delta."""
+    dev = resolve_device(device)
+    c = curves_mod.CURVES[curve]
+
+    def pts(t):
+        x, y, inf = t
+        return (torch.as_tensor(_words_from_limbs(x), device=dev),
+                torch.as_tensor(_words_from_limbs(y), device=dev),
+                torch.as_tensor(np.asarray(inf, dtype=bool).reshape(-1),
+                                device=dev))
+
+    return ProvingKey(
+        curve=c, domain_n=int(d["domain_n"]),
+        g1_a=pts(d["g1_a"]), g1_b=pts(d["g1_b"]), g1_z=pts(d["g1_z"]),
+        g1_k=pts(d["g1_k"]), g2_b=pts(d["g2_b"]),
+        g1_alpha=d["g1_alpha"], g1_beta=d["g1_beta"],
+        g1_delta=d["g1_delta"], g2_beta=d["g2_beta"],
+        g2_delta=d["g2_delta"])
+
+
+def dummy_setup(cs: ConstraintSystem, curve_name: str,
+                device=None) -> ProvingKey:
+    """Fake ProvingKey for benchmarking the prover (reference
+    groth16.DummySetup): every column point is the generator. Proofs
+    made with it do NOT verify."""
+    dev = resolve_device(device)
+    curve = curves_mod.CURVES[curve_name]
+    if curve.fr.modulus != cs.q:
+        raise ValueError("constraint system field != curve scalar field")
+    nb_wires = cs.nb_wires
+    N = _next_pow2(max(cs.nb_constraints, 1))
+    ffp = get_ff(curve.fp.name)
+    ff2 = _g2_field(curve)
+
+    def tiled(ff, pt, n):
+        one = _encode_affine_host(ff, [pt], dev)
+        return tuple(a.expand((n,) + a.shape[1:]).contiguous() for a in one)
+
+    g, g2pt = curve.g1, curve.g2
+    enc = tiled(ffp, g, nb_wires)
+    return ProvingKey(
+        curve=curve, domain_n=N,
+        g1_a=enc, g1_b=enc, g1_z=tiled(ffp, g, N),
+        g1_k=tiled(ffp, g, max(nb_wires - cs.nb_public, 1)),
+        g2_b=tiled(ff2, g2pt, nb_wires),
+        g1_alpha=g, g1_beta=g, g1_delta=g, g2_beta=g2pt, g2_delta=g2pt)

@@ -1,0 +1,162 @@
+"""Checks of a Groth16 prove that need no trusted setup.
+
+A known-log proving key holds in column j the point k_j * G with
+k_j = (j + offset) % 4096 + 1 (4096 distinct multiples from a chain of
+host additions, tiled), so every MSM of the prove has a known result:
+(sum_j k_j * s_j mod r) * G, one host scalar multiplication. The
+quotient H is checked by Schwartz-Zippel at a random point tau:
+A(tau) * B(tau) - C(tau) == H(tau) * (tau^N - 1), with A, B, C
+evaluated from the solver's columns by the barycentric formula.
+
+`synth_square_chain` builds the prove benchmark's circuit (independent
+squaring chains) directly in the IR.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gnark_tpu_torch import fields
+from gnark_tpu_torch.backend import groth16
+from gnark_tpu_torch.constraint import solve_auto
+from gnark_tpu_torch.constraint.system import (ConstraintSystem,
+                                               Instruction, R1C)
+from gnark_tpu_torch.ec import host
+from gnark_tpu_torch.ec.fp2 import get_ff2
+from gnark_tpu_torch.ff import get_ff
+
+TABLE = 4096
+OFFSETS = {"g1_a": 0, "g1_b": 1000, "g1_z": 2000, "g1_k": 3000,
+           "g2_b": 500}
+KNOWN = {"alpha": 11, "beta": 13, "delta": 17}
+
+
+class CheckError(AssertionError):
+    pass
+
+
+def synth_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
+    """n_chains independent squaring chains of chain_len constraints."""
+    cs = ConstraintSystem(fields.BN254_FR, "r1cs")
+    cs.secret_names = [f"x{i}" for i in range(n_chains)]
+    for ch in range(n_chains):
+        w = 1 + ch
+        for _ in range(chain_len):
+            o = cs.new_internal_wire()
+            cs.r1cs.append(R1C(((1, w),), ((1, w),), ((1, o),)))
+            cs.add_instruction(
+                Instruction(kind="r1c", cidx=len(cs.r1cs) - 1,
+                            outputs=(o,)), [w])
+            w = o
+    return cs
+
+
+def known_log_key(cs, curve, device=None) -> groth16.ProvingKey:
+    """Proving key of known discrete logs, through
+    groth16.proving_key_from_arrays."""
+    fp = get_ff(curve.fp.name)
+    ff2 = get_ff2(curve.fp.name, curve.fp2_nr)
+    f1, f2 = curve.host_fp, curve.host_g2_field
+    t1, t2 = [curve.g1], [curve.g2]
+    for _ in range(TABLE - 1):
+        t1.append(host.ec_add(f1, t1[-1], curve.g1))
+        t2.append(host.ec_add(f2, t2[-1], curve.g2))
+    enc1 = [fp.encode([p[0] for p in t1]), fp.encode([p[1] for p in t1])]
+    enc2 = [ff2.encode([p[0] for p in t2]), ff2.encode([p[1] for p in t2])]
+    N = groth16._next_pow2(max(cs.nb_constraints, 1))
+    sizes = {"g1_a": cs.nb_wires, "g1_b": cs.nb_wires, "g1_z": N,
+             "g1_k": cs.nb_wires - cs.nb_public, "g2_b": cs.nb_wires}
+    d = {"domain_n": N}
+    for k, n in sizes.items():
+        idx = (np.arange(n) + OFFSETS[k]) % TABLE
+        enc = enc2 if k == "g2_b" else enc1
+        d[k] = (enc[0][idx], enc[1][idx], np.zeros(n, dtype=bool))
+    for nm, m in KNOWN.items():
+        d["g1_" + nm] = host.ec_mul(f1, curve.g1, m)
+    for nm in ("beta", "delta"):
+        d["g2_" + nm] = host.ec_mul(f2, curve.g2, KNOWN[nm])
+    return groth16.proving_key_from_arrays(d, curve.name, device)
+
+
+def _known_sum(vals, offset, q):
+    s = 0
+    for j, v in enumerate(vals):
+        s += ((j + offset) % TABLE + 1) * v
+    return s % q
+
+
+def _batch_inv(vals, q):
+    n = len(vals)
+    pre = [1] * (n + 1)
+    for i, v in enumerate(vals):
+        pre[i + 1] = pre[i] * v % q
+    inv_all = pow(pre[n], -1, q)
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = pre[i] * inv_all % q
+        inv_all = inv_all * vals[i] % q
+    return out
+
+
+def check_prove(cs, pk, public, secret, rng) -> None:
+    """Run prove's own stage functions on the solver's output for
+    (public, secret) and check the five MSMs against their known-log
+    values and H by Schwartz-Zippel. Raises CheckError."""
+    curve = pk.curve
+    q = curve.fr.modulus
+    N = pk.domain_n
+    sol = solve_auto(cs, public, secret)
+    nl = (curve.fr.bits + 63) // 64
+    abc = np.zeros((3, N, nl), dtype=np.uint64)
+    abc[:, :len(sol.a)] = sol.abc_u64
+    abc_raw = groth16._words_u64(abc, pk.device)
+    wire_raw = groth16._words_u64(sol.values_u64, pk.device)
+    fr = get_ff(curve.fr.name)
+    den = pow(pow(curve.fr.generator, N, q) - 1, -1, q)
+    den_m = torch.as_tensor(fr.encode_words([den]), device=pk.device)
+    g1 = groth16._g1_stage_fn(curve.fr.name, curve.fp.name, N,
+                              cs.nb_public, curve.fr.bits, str(pk.device))
+    (ar, bs1, krs2, krs), h = g1(abc_raw, wire_raw, den_m, pk.g1_a,
+                                 pk.g1_b, pk.g1_z, pk.g1_k)
+    bs2 = groth16._g2_stage_fn(curve.name, curve.fr.bits)(pk.g2_b, wire_raw)
+    vals = sol.values
+    hv = [int(v) for v in fr.decode_words(h.cpu(), mont=False)]
+    f1, f2 = curve.host_fp, curve.host_g2_field
+    nb_pub = cs.nb_public
+    want = {
+        "Ar": (ar, f1, curve.g1, _known_sum(vals, OFFSETS["g1_a"], q)),
+        "Bs1": (bs1, f1, curve.g1, _known_sum(vals, OFFSETS["g1_b"], q)),
+        "Krs2": (krs2, f1, curve.g1,
+                 _known_sum(hv[:N - 1], OFFSETS["g1_z"], q)),
+        "Krs": (krs, f1, curve.g1,
+                _known_sum(vals[nb_pub:], OFFSETS["g1_k"], q)),
+        "Bs2": (bs2, f2, curve.g2, _known_sum(vals, OFFSETS["g2_b"], q)),
+    }
+    for name, (got, f, g, k) in want.items():
+        if got != host.ec_mul(f, g, k):
+            raise CheckError(f"MSM {name} differs from its known-log value")
+
+    tau = rng.randrange(2, q)
+    w = curve.fr.root_of_unity(N)
+    wpows, dens, wi = [], [], 1
+    for _ in range(len(sol.a)):
+        wpows.append(wi)
+        dens.append((tau - wi) % q)
+        wi = wi * w % q
+    inv = _batch_inv(dens, q)
+    zt = (pow(tau, N, q) - 1) % q
+    scale = zt * pow(N, -1, q) % q
+    ev = []
+    for col in (sol.a, sol.b, sol.c):
+        s = 0
+        for v, wp, iv in zip(col, wpows, inv):
+            if v:
+                s += v * wp % q * iv
+        ev.append(s * scale % q)
+    ht = 0
+    for c in reversed(hv):
+        ht = (ht * tau + c) % q
+    if (ev[0] * ev[1] - ev[2]) % q != ht * zt % q:
+        raise CheckError("H fails A(tau)B(tau) - C(tau) == "
+                         "H(tau)(tau^N - 1)")

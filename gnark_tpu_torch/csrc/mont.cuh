@@ -1,0 +1,338 @@
+// Montgomery arithmetic over 8 x 32-bit words, for the BN254 base and
+// scalar fields (254-bit moduli), and its Fp2 lift (u^2 = -1).
+//
+// Counterpart of gnark_tpu/ff/pallas_mont.py (TFF) and
+// gnark_tpu/ff/pallas_fp2.py (TFF2). Not a kernel: device functions that
+// the kernels of this directory compose.
+//
+// R = 2^256, the same radix as sixteen 16-bit limbs, so Montgomery
+// values are bit-identical with the reference's. The product is CIOS
+// with 64-bit accumulators (one 32 x 32 -> 64 multiply-add per word
+// pair). The lazy class of the reference is kept exactly:
+//   mul_lazy      in < 2p, out < 2p  (no final subtract; needs 4p < R)
+//   sop2 / sop4   sum of 2 / 4 products, one / two conditional 2p subtracts
+//   add2p, sub2p, neg2p, double2p   on [0, 2p)
+//   canon         < 3p -> [0, p) with two conditional p subtracts
+// Field constants come in a FieldC passed by value as a kernel argument;
+// n0 is -p^-1 mod 2^32 (not the reference's 16-bit constant).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define GT_NW 8
+
+struct FieldC {
+  uint32_t p[GT_NW];
+  uint32_t p2[GT_NW];
+  uint32_t one[GT_NW];
+  uint32_t n0;
+};
+
+// Host: constants laid out as p | 2p | R mod p | n0 (25 words).
+static inline FieldC field_from_host(const uint32_t* c) {
+  FieldC f;
+  for (int i = 0; i < GT_NW; ++i) {
+    f.p[i] = c[i];
+    f.p2[i] = c[GT_NW + i];
+    f.one[i] = c[2 * GT_NW + i];
+  }
+  f.n0 = c[3 * GT_NW];
+  return f;
+}
+
+struct Fp {
+  uint32_t w[GT_NW];
+};
+
+struct Fp2 {
+  Fp c0, c1;
+};
+
+static inline Fp fp_from_host(const uint32_t* c) {
+  Fp r;
+  for (int i = 0; i < GT_NW; ++i) r.w[i] = c[i];
+  return r;
+}
+
+static inline Fp2 fp2_from_host(const uint32_t* c) {
+  Fp2 r;
+  r.c0 = fp_from_host(c);
+  r.c1 = fp_from_host(c + GT_NW);
+  return r;
+}
+
+// ---------------------------------------------------------------------
+// global / shared memory access (an element is 32 contiguous bytes)
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void ld(Fp& r, const uint32_t* g) {
+  const uint4* q = reinterpret_cast<const uint4*>(g);
+  uint4 u = q[0], v = q[1];
+  r.w[0] = u.x; r.w[1] = u.y; r.w[2] = u.z; r.w[3] = u.w;
+  r.w[4] = v.x; r.w[5] = v.y; r.w[6] = v.z; r.w[7] = v.w;
+}
+
+__device__ __forceinline__ void st(uint32_t* g, const Fp& a) {
+  uint4* q = reinterpret_cast<uint4*>(g);
+  q[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
+  q[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+}
+
+__device__ __forceinline__ void ld(Fp2& r, const uint32_t* g) {
+  ld(r.c0, g);
+  ld(r.c1, g + GT_NW);
+}
+
+__device__ __forceinline__ void st(uint32_t* g, const Fp2& a) {
+  st(g, a.c0);
+  st(g + GT_NW, a.c1);
+}
+
+// ---------------------------------------------------------------------
+// word helpers
+// ---------------------------------------------------------------------
+
+// r = a - c; returns the borrow (1 if a < c)
+__device__ __forceinline__ uint32_t sub_words(uint32_t* r, const uint32_t* a,
+                                              const uint32_t* c) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) {
+    uint64_t d = (uint64_t)a[i] - c[i] - borrow;
+    r[i] = (uint32_t)d;
+    borrow = (uint32_t)(d >> 63);
+  }
+  return borrow;
+}
+
+// r = a + c; returns the carry
+__device__ __forceinline__ uint32_t add_words(uint32_t* r, const uint32_t* a,
+                                              const uint32_t* c) {
+  uint64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) {
+    uint64_t s = (uint64_t)a[i] + c[i] + carry;
+    r[i] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  return (uint32_t)carry;
+}
+
+// (top:a) >= c ? (top:a) - c : (top:a), over NW words plus a top word
+__device__ __forceinline__ void cond_sub(uint32_t* a, uint32_t& top,
+                                         const uint32_t* c) {
+  uint32_t d[GT_NW];
+  uint32_t borrow = sub_words(d, a, c);
+  bool take = top >= borrow;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) a[i] = take ? d[i] : a[i];
+  top = take ? top - borrow : top;
+}
+
+// ---------------------------------------------------------------------
+// CIOS: sum_k a_k * b_k * R^-1, result in (top:out)
+// ---------------------------------------------------------------------
+
+// t[0 .. NW+1] += a * bi
+__device__ __forceinline__ void mac_row(uint32_t* t, const uint32_t* a,
+                                        uint32_t bi) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < GT_NW; ++j) {
+    uint64_t s = (uint64_t)a[j] * bi + t[j] + c;
+    t[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  uint64_t s = (uint64_t)t[GT_NW] + c;
+  t[GT_NW] = (uint32_t)s;
+  t[GT_NW + 1] += (uint32_t)(s >> 32);
+}
+
+// t += m * p with m = t[0] * n0 (so t[0] becomes 0), then t >>= 32
+__device__ __forceinline__ void reduce_row(uint32_t* t, const FieldC& F) {
+  uint32_t m = t[0] * F.n0;
+  uint64_t s = (uint64_t)m * F.p[0] + t[0];
+  uint64_t c = s >> 32;
+#pragma unroll
+  for (int j = 1; j < GT_NW; ++j) {
+    s = (uint64_t)m * F.p[j] + t[j] + c;
+    t[j - 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+  s = (uint64_t)t[GT_NW] + c;
+  t[GT_NW - 1] = (uint32_t)s;
+  s = (uint64_t)t[GT_NW + 1] + (s >> 32);
+  t[GT_NW] = (uint32_t)s;
+  t[GT_NW + 1] = (uint32_t)(s >> 32);
+}
+
+template <int K>
+__device__ __forceinline__ void cios(uint32_t* out, uint32_t& top,
+                                     const Fp* a, const Fp* b,
+                                     const FieldC& F) {
+  uint32_t t[GT_NW + 2];
+#pragma unroll
+  for (int i = 0; i < GT_NW + 2; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) mac_row(t, a[k].w, b[k].w[i]);
+    reduce_row(t, F);
+  }
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) out[i] = t[i];
+  top = t[GT_NW];
+}
+
+// ---------------------------------------------------------------------
+// Fp, lazy class
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ Fp mul_lazy(const Fp& a, const Fp& b,
+                                       const FieldC& F) {
+  Fp r;
+  uint32_t top;
+  cios<1>(r.w, top, &a, &b, F);
+  return r;
+}
+
+__device__ __forceinline__ Fp sop2(const Fp& a1, const Fp& b1, const Fp& a2,
+                                   const Fp& b2, const FieldC& F) {
+  Fp a[2] = {a1, a2};
+  Fp b[2] = {b1, b2};
+  Fp r;
+  uint32_t top;
+  cios<2>(r.w, top, a, b, F);
+  cond_sub(r.w, top, F.p2);
+  return r;
+}
+
+__device__ __forceinline__ Fp sop4(const Fp& a1, const Fp& b1, const Fp& a2,
+                                   const Fp& b2, const Fp& a3, const Fp& b3,
+                                   const Fp& a4, const Fp& b4,
+                                   const FieldC& F) {
+  Fp a[4] = {a1, a2, a3, a4};
+  Fp b[4] = {b1, b2, b3, b4};
+  Fp r;
+  uint32_t top;
+  cios<4>(r.w, top, a, b, F);
+  cond_sub(r.w, top, F.p2);
+  cond_sub(r.w, top, F.p2);
+  return r;
+}
+
+__device__ __forceinline__ Fp add2p(const Fp& a, const Fp& b,
+                                    const FieldC& F) {
+  Fp r;
+  uint32_t top = add_words(r.w, a.w, b.w);
+  cond_sub(r.w, top, F.p2);
+  return r;
+}
+
+__device__ __forceinline__ Fp sub2p(const Fp& a, const Fp& b,
+                                    const FieldC& F) {
+  Fp r;
+  uint32_t top = add_words(r.w, a.w, F.p2);      // a + 2p < 4p < R
+  top -= sub_words(r.w, r.w, b.w);               // >= 0 since b < 2p
+  cond_sub(r.w, top, F.p2);
+  return r;
+}
+
+__device__ __forceinline__ Fp neg2p(const Fp& a, const FieldC& F) {
+  Fp r;
+  sub_words(r.w, F.p2, a.w);
+  return r;
+}
+
+__device__ __forceinline__ Fp double2p(const Fp& a, const FieldC& F) {
+  return add2p(a, a, F);
+}
+
+__device__ __forceinline__ Fp canon(const Fp& a, const FieldC& F) {
+  Fp r = a;
+  uint32_t top = 0;
+  cond_sub(r.w, top, F.p);
+  cond_sub(r.w, top, F.p);
+  return r;
+}
+
+__device__ __forceinline__ void set_zero(Fp& r) {
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) r.w[i] = 0;
+}
+
+__device__ __forceinline__ void set_one(Fp& r, const FieldC& F) {
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) r.w[i] = F.one[i];
+}
+
+// ---------------------------------------------------------------------
+// Fp2 = Fp[u]/(u^2 + 1), lazy class per component (TFF2 with |nr| = 1)
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ Fp2 mul_lazy(const Fp2& a, const Fp2& c,
+                                        const FieldC& F) {
+  Fp t0 = mul_lazy(a.c0, c.c0, F);
+  Fp t1 = mul_lazy(a.c1, c.c1, F);
+  Fp2 r;
+  r.c0 = sub2p(t0, t1, F);
+  Fp m = mul_lazy(add2p(a.c0, a.c1, F), add2p(c.c0, c.c1, F), F);
+  r.c1 = sub2p(sub2p(m, t0, F), t1, F);
+  return r;
+}
+
+// a*c + d*e: r0 = a0c0 - a1c1 + d0e0 - d1e1, r1 = a0c1 + a1c0 + d0e1 + d1e0
+__device__ __forceinline__ Fp2 sop2(const Fp2& a, const Fp2& c, const Fp2& d,
+                                    const Fp2& e, const FieldC& F) {
+  Fp na1 = neg2p(a.c1, F);
+  Fp nd1 = neg2p(d.c1, F);
+  Fp2 r;
+  r.c0 = sop4(a.c0, c.c0, na1, c.c1, d.c0, e.c0, nd1, e.c1, F);
+  r.c1 = sop4(a.c0, c.c1, a.c1, c.c0, d.c0, e.c1, d.c1, e.c0, F);
+  return r;
+}
+
+__device__ __forceinline__ Fp2 add2p(const Fp2& a, const Fp2& b,
+                                     const FieldC& F) {
+  Fp2 r;
+  r.c0 = add2p(a.c0, b.c0, F);
+  r.c1 = add2p(a.c1, b.c1, F);
+  return r;
+}
+
+__device__ __forceinline__ Fp2 sub2p(const Fp2& a, const Fp2& b,
+                                     const FieldC& F) {
+  Fp2 r;
+  r.c0 = sub2p(a.c0, b.c0, F);
+  r.c1 = sub2p(a.c1, b.c1, F);
+  return r;
+}
+
+__device__ __forceinline__ Fp2 neg2p(const Fp2& a, const FieldC& F) {
+  Fp2 r;
+  r.c0 = neg2p(a.c0, F);
+  r.c1 = neg2p(a.c1, F);
+  return r;
+}
+
+__device__ __forceinline__ Fp2 double2p(const Fp2& a, const FieldC& F) {
+  return add2p(a, a, F);
+}
+
+__device__ __forceinline__ Fp2 canon(const Fp2& a, const FieldC& F) {
+  Fp2 r;
+  r.c0 = canon(a.c0, F);
+  r.c1 = canon(a.c1, F);
+  return r;
+}
+
+__device__ __forceinline__ void set_zero(Fp2& r) {
+  set_zero(r.c0);
+  set_zero(r.c1);
+}
+
+__device__ __forceinline__ void set_one(Fp2& r, const FieldC& F) {
+  set_one(r.c0, F);
+  set_zero(r.c1);
+}
