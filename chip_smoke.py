@@ -5,25 +5,34 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: the four CUDA kernel libraries (one nvcc each, in parallel)
+  2. build: the six CUDA kernel libraries (one nvcc each, in parallel)
      and the native witness solver;
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, K2 row_fft (and whole four-step transforms), K3
      proj_add / proj_double, K4 bucket_msm, in G1 and G2 with edge cases;
-  4. the main path: BN254 Groth16 prove of a 2^20-constraint squaring
+     K5 butterfly (every stage of 2^13, and whole radix-2 transforms),
+     K6 jac_add_mixed / K7 jac_double in G1 and G2 with edge cases;
+  4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; the five MSMs are checked against one host scalar
      multiplication each, and H by Schwartz-Zippel at a random point;
-  5. every kernel again at the shapes the proves give it, held against
-     its plain version on the same inputs; its launches during the
-     proves, its time, its bound and its plain version's time, as one
-     JSON line; then the device as the last line.
+  5. the setup -> prove -> verify path, in two configurations:
+     g16_20 (Setup at 2^20: sampled key points against host scalar
+     multiplications of the toxic waste, one proof that verifies, one
+     tampered proof that does not) and merkle_d12 (the Merkle membership
+     example at depth 12, N = 2^13, on the radix-2 plan: setup, three
+     proves, verify; a wrong root does not verify);
+  6. every kernel again at the shapes its path gives it, held against
+     its plain version on the same inputs; its launches during its path,
+     its time, its bound and its plain version's time, as one JSON line;
+     then the device as the last line.
 
 Option: --quick stops after phase 3.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -42,10 +51,16 @@ MUL_OPS = {  # 32-bit multiplies per operation (mul.lo + mul.hi per word pair)
     "proj_add2": 8 * 792 + 3 * 1296,    # G2: Fp2 product = 3 Fp products
     "proj_madd2": 7 * 792 + 3 * 1296,
     "proj_dbl2": 9 * 792,
+    "jac_madd": 11 * 264,               # madd-2007-bl: 7M + 4S
+    "jac_dbl": 7 * 264,                 # dbl-2009-l: 2M + 5S
+    "jac_madd2": 11 * 792,
+    "jac_dbl2": 7 * 792,
 }
 HBM_BYTES_PER_S = 3.35e12
 DEV = "cuda"          # the card; a rehearsal may set "cpu"
 N_CHAINS, CHAIN_LEN = 2048, 512      # 2^20 constraints
+SETUP_SEED = 7
+MERKLE_DEPTH = 12                    # 7,957 constraints, N = 2^13
 
 
 def log(*a):
@@ -182,20 +197,13 @@ def phase_kernels(rng, res):
         err = max(err, max_abs(got, want))
         log(f"K2 row_fft: (8, {S}, 8) bit-exact "
             f"{cuda_ms(lambda: row_fft(fr, x, tw)):.4f} ms")
-    # whole four-step 2^12 transforms against the plain four-step
+    # whole four-step 2^12 transforms against the plain four-step (the
+    # threshold forced down: 2^12 takes the radix-2 plan by default)
     n = 1 << 12
-    dg, dc = Domain(fr, n, DEV), Domain(fr, n, "cpu")
-    x = rand_words(fr, n, rng)
-    for name, fg, fc in (
-            ("fft", lambda v: dg.fft(v), lambda v: dc.fft(v)),
-            ("ifft", lambda v: dg.ifft(v), lambda v: dc.ifft(v)),
-            ("coset fft", lambda v: dg.fft(v, coset=True),
-             lambda v: dc.fft(v, coset=True)),
-            ("coset ifft", lambda v: dg.ifft(v, coset=True),
-             lambda v: dc.ifft(v, coset=True))):
-        got, want = fg(x).cpu(), fc(x.cpu())
-        check(torch.equal(got, want), f"four-step 2^12 {name}")
-        err = max(err, max_abs(got, want))
+    with fourstep_log(12):
+        err = max(err, transforms_err(Domain(fr, n, DEV),
+                                      Domain(fr, n, "cpu"),
+                                      rand_words(fr, n, rng), "four-step"))
     res["row_fft"]["max_abs_err"] = err
     log("K2 four-step 2^12 fft/ifft/coset fft/coset ifft bit-exact")
 
@@ -221,8 +229,8 @@ def phase_kernels(rng, res):
         Q[3] = host.ec_neg(hf, P[3])              # P + (-P)
         P[4] = Q[4] = host.INF
         lazy = 200                                # first coords in [p, 2p)
-        A = proj_words(ff, hf, P, rng, g2, lazy)
-        B = proj_words(ff, hf, Q, rng, g2, 0)
+        A = point_words(ff, hf, P, rng, g2, lazy)
+        B = point_words(ff, hf, Q, rng, g2, 0)
         got, want = proj_add(ff, b3, A, B), proj_add_plain(ff, b3, A, B)
         check(all(torch.equal(u, v) for u, v in zip(got, want)),
               f"K3 proj_add {tag}")
@@ -269,24 +277,151 @@ def phase_kernels(rng, res):
         res[k]["max_abs_err"] = v
 
 
-def proj_words(ff, hf, pts, rng, g2, lazy):
-    """Host affine points -> random-Z projective words on the card; the
-    first `lazy` X coordinates are pushed into [p, 2p)."""
+@contextlib.contextmanager
+def fourstep_log(k):
+    """Domains of 2^k and up take the four-step plan inside the block."""
+    old = os.environ.get("GNARK_TPU_NTT_FOURSTEP_LOG")
+    os.environ["GNARK_TPU_NTT_FOURSTEP_LOG"] = str(k)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GNARK_TPU_NTT_FOURSTEP_LOG"]
+        else:
+            os.environ["GNARK_TPU_NTT_FOURSTEP_LOG"] = old
+
+
+def transforms_err(dg, dc, x, what):
+    """fft / ifft / coset fft / coset ifft of x on the card's Domain dg
+    against the CPU Domain dc (plain versions); fails unless bit-exact."""
+    import torch
+    err = 0
+    for name, coset, inv in (("fft", False, False), ("ifft", False, True),
+                             ("coset fft", True, False),
+                             ("coset ifft", True, True)):
+        fg, fc = (dg.ifft, dc.ifft) if inv else (dg.fft, dc.fft)
+        got, want = fg(x, coset=coset).cpu(), fc(x.cpu(), coset=coset)
+        check(torch.equal(got, want), f"{what} {dg.n} {name}")
+        err = max(err, max_abs(got, want))
+    return err
+
+
+def phase_kernels_jac_ntt(rng, res):
+    """K5 over every stage of 2^13 and whole 2^13 transforms; K6 and K7
+    over 2^12 points in G1 and G2 with edge cases."""
+    import torch
+    from gnark_tpu_torch.ec import curves, host
+    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ec.jac_ec import (jac_add_mixed,
+                                           jac_add_mixed_plain, jac_double,
+                                           jac_double_plain)
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ntt import Domain
+    from gnark_tpu_torch.ntt.radix2 import (butterfly, butterfly_plain,
+                                            stage_twiddles)
+
+    fr = get_ff("bn254_fr")
+    n = 1 << 13
+    tws = stage_twiddles(fr, n, fr.p.root_of_unity(n))
+    err = 0
+    for tw in tws:
+        tw = torch.as_tensor(tw, device=DEV)
+        y = rand_words(fr, n, rng, lazy=500)
+        got = butterfly(fr, y.clone(), tw)
+        want = butterfly_plain(fr, y.clone(), tw)
+        check(torch.equal(got, want), f"K5 butterfly half={tw.shape[0]}")
+        err = max(err, max_abs(got, want))
+    err = max(err, transforms_err(Domain(fr, n, DEV), Domain(fr, n, "cpu"),
+                                  rand_words(fr, n, rng), "radix-2"))
+    res["butterfly"]["max_abs_err"] = err
+    log(f"K5 butterfly: all 13 stages of 2^13 (500 inputs in [p, 2p)) and "
+        f"2^13 fft/ifft/coset fft/coset ifft bit-exact")
+
+    c = curves.CURVES["bn254"]
+    errs = {"jac_add_mixed": 0, "jac_double": 0}
+    for g2 in (False, True):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        hf = c.host_g2_field if g2 else c.host_fp
+        gen = c.g2 if g2 else c.g1
+        tag = "G2" if g2 else "G1"
+        base = [gen]
+        for _ in range(63):
+            base.append(host.ec_add(hf, base[-1], gen))
+        m = 1 << 12
+        P = [base[rng.randrange(64)] for _ in range(m)]
+        A = [base[rng.randrange(64)] for _ in range(m)]
+        inf2 = [rng.random() < 0.1 for _ in range(m)]
+        P[0], inf2[0] = host.INF, False           # infinity accumulator
+        inf2[1] = True                            # masked operand
+        A[2], inf2[2] = P[2], False               # R == A: doubling
+        A[3], inf2[3] = host.ec_neg(hf, P[3]), False   # R == -A
+        P[4], inf2[4] = host.INF, True
+        Pw = point_words(ff, hf, P, rng, g2, 200, jacobian=True)
+        x2, y2 = affine_words(ff, A)              # ignored where masked
+        mask = torch.tensor(inf2, device=DEV)
+        for name, fn, pfn, want_host, args in (
+                ("jac_add_mixed", jac_add_mixed, jac_add_mixed_plain,
+                 lambda i: P[i] if inf2[i] else host.ec_add(hf, P[i], A[i]),
+                 (x2, y2, mask)),
+                ("jac_add_mixed", jac_add_mixed, jac_add_mixed_plain,
+                 lambda i: P[i] if inf2[i] else host.ec_add(hf, P[i], gen),
+                 affine_words(ff, [gen]) + (mask,)),       # broadcast
+                ("jac_double", jac_double, jac_double_plain,
+                 lambda i: host.ec_dbl(hf, P[i]), ())):
+            got, want = fn(ff, Pw, *args), pfn(ff, Pw, *args)
+            check(all(torch.equal(u, v) for u, v in zip(got, want)),
+                  f"K6/K7 {name} {tag}")
+            errs[name] = max([errs[name]] +
+                             [max_abs(u, v) for u, v in zip(got, want)])
+            for i in range(8):
+                check(jac_to_host(ff, hf, got, i) == want_host(i),
+                      f"{name} {tag} vs host at {i}")
+        log(f"K6 jac_add_mixed (per-row and broadcast operand) / K7 "
+            f"jac_double {tag}: ({m}, {Pw[0].shape[1]}) bit-exact, "
+            f"host-checked")
+    for k, v in errs.items():
+        res[k]["max_abs_err"] = v
+
+
+def jac_to_host(ff, hf, P, i):
+    """Row i of Jacobian words -> host affine point."""
+    from gnark_tpu_torch.ec import host
+    shape = (1, 2, ff.nw) if hasattr(ff, "base") else (1, ff.nw)
+    X, Y, Z = (ff.decode_words(a[i:i + 1].reshape(shape))[0] for a in P)
+    if hasattr(ff, "base"):
+        X, Y, Z = (tuple(int(c) for c in v) for v in (X, Y, Z))
+    else:
+        X, Y, Z = int(X), int(Y), int(Z)
+    if hf.is_zero(Z):
+        return host.INF
+    zi = hf.inv(Z)
+    zi2 = hf.mul(zi, zi)
+    return (hf.mul(X, zi2), hf.mul(Y, hf.mul(zi2, zi)))
+
+
+def point_words(ff, hf, pts, rng, g2, lazy, jacobian=False):
+    """Host affine points -> words (X, Y, Z) on the card with a random Z:
+    projective (x z, y z, z), identity (0, 1, 0), or Jacobian (x z^2,
+    y z^3, z), infinity (1, 1, 0); the first `lazy` X coordinates are
+    pushed into [p, 2p)."""
     import torch
     from gnark_tpu_torch.ec import host
     q = ff.p.modulus
+    one, zero = ((1, 0), (0, 0)) if g2 else (1, 0)
     X, Y, Z = [], [], []
     for P in pts:
         if P is host.INF:
-            X.append((0, 0) if g2 else 0)
-            Y.append((1, 0) if g2 else 1)
-            Z.append((0, 0) if g2 else 0)
+            X.append(one if jacobian else zero)
+            Y.append(one)
+            Z.append(zero)
             continue
-        z = rng.randrange(1, q)
-        zz = (z, 0) if g2 else z
-        X.append(hf.mul(P[0], zz))
-        Y.append(hf.mul(P[1], zz))
-        Z.append(zz)
+        z = (rng.randrange(1, q), rng.randrange(q)) if g2 else \
+            rng.randrange(1, q)
+        zx, zy = (hf.mul(z, z), hf.mul(hf.mul(z, z), z)) if jacobian else \
+            (z, z)
+        X.append(hf.mul(P[0], zx))
+        Y.append(hf.mul(P[1], zy))
+        Z.append(z)
     n = len(pts)
     base = ff.base if g2 else ff
     out = []
@@ -373,7 +508,149 @@ def phase_main(res):
     log("main path: the five MSMs equal their known-log values and "
         "A(tau)B(tau) - C(tau) == H(tau)(tau^N - 1) "
         f"(checked in {time.perf_counter() - t:.1f} s)")
-    return pk.g1_a[0].shape[0]
+    return pk.g1_a[0].shape[0], cs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: setup -> prove -> verify
+# ---------------------------------------------------------------------------
+
+def fmt_times(tm):
+    return json.dumps({k: round(v, 4) for k, v in tm.items()})
+
+
+def timed_setup(cs, what):
+    """groth16.setup on the card, timed by phase; K6 and K7 must launch
+    once per scalar bit in each of the two ladders."""
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.ec.jac_ec import jac_add_mixed, jac_double
+    from gnark_tpu_torch.ff.mont_mul import mont_mul
+    wrappers = (jac_add_mixed, jac_double, mont_mul)
+    for wr in wrappers:
+        wr.launches = 0
+    tm = {}
+    t = time.perf_counter()
+    pk, vk = groth16.setup(cs, "bn254", rng=random.Random(SETUP_SEED),
+                           timings=tm)
+    tm["total"] = time.perf_counter() - t
+    launches = {wr.__name__: wr.launches for wr in wrappers}
+    log(f"{what} setup (s): {fmt_times(tm)}; launches {json.dumps(launches)}")
+    bits = pk.curve.fr.bits
+    for k in ("jac_add_mixed", "jac_double"):
+        check(launches[k] == 2 * bits,
+              f"{what} setup launched {k} {launches[k]} times, not "
+              f"2 x {bits}")
+    return pk, vk, launches
+
+
+def check_key(cs, pk, vk, rng, k=64):
+    """k sampled points of every key column, and every vk and host
+    point, against host.ec_mul(generator, scalar) for the scalars
+    recomputed from the setup's seed."""
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.ec import host
+    from gnark_tpu_torch.ff import get_ff
+    curve = pk.curve
+    s = groth16.setup_scalars(cs, curve, random.Random(SETUP_SEED))
+    f1, f2 = curve.host_fp, curve.host_g2_field
+    nw, npub, N = cs.nb_wires, cs.nb_public, s["N"]
+    o_z = 3 + 2 * nw
+    o_vk = o_z + N
+    cols = (("g1_a", 3, False), ("g1_b", 3 + nw, False), ("g1_z", o_z, False),
+            ("g1_k", o_vk + npub, False), ("g2_b", 3, True))
+    ffp = get_ff(curve.fp.name)
+    ff2 = groth16._g2_field(curve)
+    for name, off, g2 in cols:
+        P = getattr(pk, name)
+        n = P[0].shape[0]
+        idx = sorted({0, n - 1} | {rng.randrange(n) for _ in range(k - 2)})
+        got = groth16._host_points(ff2 if g2 else ffp,
+                                   *(a[idx] for a in P))
+        sc = s["g2" if g2 else "g1"]
+        for i, pt in zip(idx, got):
+            want = host.ec_mul(f2 if g2 else f1, curve.g2 if g2 else curve.g1,
+                               sc[off + i])
+            check(pt == want, f"key column {name}[{i}] != [s] G")
+    want = {"g1_alpha": (f1, curve.g1, s["alpha"]),
+            "g1_beta": (f1, curve.g1, s["beta"]),
+            "g1_delta": (f1, curve.g1, s["delta"]),
+            "g2_beta": (f2, curve.g2, s["beta"]),
+            "g2_delta": (f2, curve.g2, s["delta"])}
+    for name, (f, g, x) in want.items():
+        check(getattr(pk, name) == host.ec_mul(f, g, x), f"pk.{name}")
+    check(vk.g2_gamma == host.ec_mul(f2, curve.g2, s["gamma"]), "vk.g2_gamma")
+    for i, pt in enumerate(vk.g1_k):
+        check(pt == host.ec_mul(f1, curve.g1, s["g1"][o_vk + i]),
+              f"vk.g1_k[{i}]")
+
+
+def phase_setup(res, cs, rng):
+    """g16_20: Setup at 2^20, its key against host scalar
+    multiplications, one proof that verifies and one tampered that does
+    not."""
+    from gnark_tpu_torch.backend import groth16
+    pk, vk, launches = timed_setup(cs, "g16_20")
+    for k in ("jac_add_mixed", "jac_double"):
+        res[k]["launches"] = launches[k]
+    t = time.perf_counter()
+    check_key(cs, pk, vk, rng)
+    log(f"g16_20 key: 64 sampled points of each of the five columns, the "
+        f"five host points and the vk equal [s] G for the recomputed "
+        f"scalars (checked in {time.perf_counter() - t:.1f} s)")
+    sec = [j + 2 for j in range(N_CHAINS)]
+    tm = {}
+    t = time.perf_counter()
+    proof = groth16.prove(cs, pk, [], sec, rng=random.Random(11), timings=tm)
+    tm["total"] = time.perf_counter() - t
+    log(f"g16_20 prove on the setup key (s): {fmt_times(tm)}")
+    t = time.perf_counter()
+    check(groth16.verify(proof, vk, []), "g16_20: verify rejected a proof")
+    log(f"g16_20 verify: True in {time.perf_counter() - t:.3f} s")
+    other = groth16.prove(cs, pk, [], sec, rng=random.Random(12))
+    bad = groth16.Proof(ar=proof.ar, krs=other.krs, bs=proof.bs)
+    check(not groth16.verify(bad, vk, []),
+          "g16_20: verify accepted Ar and Krs of two proofs")
+    log("g16_20 verify of Ar from one proof and Krs from another: False")
+    return 3 + 3 * cs.nb_wires + pk.domain_n, 3 + cs.nb_wires
+
+
+def phase_merkle(res):
+    """merkle_d12: the Merkle membership example at depth 12 (N = 2^13,
+    the radix-2 plan): setup, three proves, verify; a wrong root fails."""
+    from gnark_tpu_torch import fields
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.backend.groth16_check import (Membership,
+                                                       membership_assignment)
+    from gnark_tpu_torch.frontend import compile_circuit, witness
+    from gnark_tpu_torch.ntt.fourstep import row_fft
+    from gnark_tpu_torch.ntt.radix2 import butterfly
+    t = time.perf_counter()
+    cs = compile_circuit(Membership(MERKLE_DEPTH), fields.BN254_FR)
+    pub, sec = witness(membership_assignment(MERKLE_DEPTH, 5), cs)
+    log(f"merkle_d12: circuit {cs.summary()} and witness in "
+        f"{time.perf_counter() - t:.2f} s")
+    pk, vk, _ = timed_setup(cs, "merkle_d12")
+    for wr in (butterfly, row_fft):
+        wr.launches = 0
+    for i in range(3):
+        tm = {}
+        t = time.perf_counter()
+        proof = groth16.prove(cs, pk, pub, sec, rng=random.Random(20 + i),
+                              timings=tm)
+        tm["total"] = time.perf_counter() - t
+        log(f"merkle_d12 prove {i} (s): {fmt_times(tm)}")
+    launches = {"butterfly": butterfly.launches, "row_fft": row_fft.launches}
+    log("launches during 3 merkle_d12 proves: " + json.dumps(launches))
+    check(launches["butterfly"] > 0 and launches["row_fft"] == 0,
+          "merkle_d12 proves did not take the radix-2 plan")
+    res["butterfly"]["launches"] = launches["butterfly"]
+    t = time.perf_counter()
+    check(groth16.verify(proof, vk, pub), "merkle_d12: verify rejected")
+    log(f"merkle_d12 verify: True in {time.perf_counter() - t:.3f} s")
+    q = pk.curve.fr.modulus
+    check(not groth16.verify(proof, vk, [(pub[0] + 1) % q]),
+          "merkle_d12: verify accepted a wrong root")
+    log("merkle_d12 verify with a wrong root: False")
 
 
 def sync():
@@ -383,13 +660,14 @@ def sync():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernels at the main path's shapes
+# phase 6: kernels at their paths' shapes
 # ---------------------------------------------------------------------------
 
-def phase_times(res, rng, n_pts, n=1 << 20):
-    """Each kernel at the shapes the main path gives it (a domain of n,
-    n_pts points for K4): timed, and held against its plain version on the same
-    inputs; a disagreement fails the run."""
+def phase_times(res, rng, n_pts, ladder_sizes, n=1 << 20):
+    """Each kernel at the shapes its path gives it (a domain of n, n_pts
+    points for K4, a stage of 2^13 for K5, the G1 and G2 setup ladders'
+    widths for K6 and K7): timed, and held against its plain version on
+    the same inputs; a disagreement fails the run."""
     import torch
     from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.ec.fp2 import get_ff2
@@ -496,6 +774,66 @@ def phase_times(res, rng, n_pts, n=1 << 20):
             got = bucket_msm(ff, bb, *sl_)
         put("bucket_msm", "_g2" if g2 else "", [n_pts, Lw], ms, pms, nbytes,
             nmul, proj_err(ff, got, want), plain_shape=[pn, Lw])
+    del x, y, got, want, digits, ent
+
+    # K5: one stage of merkle_d12's 2^13 domain (its widest, half = 2^12)
+    from gnark_tpu_torch.ntt.radix2 import (butterfly, butterfly_plain,
+                                            stage_twiddles)
+    m = 1 << 13
+    y0 = rand_words(fr, m, rng)
+    tw = torch.as_tensor(stage_twiddles(fr, m, fr.p.root_of_unity(m))[-1],
+                         device=DEV)
+    yk = y0.clone()
+    ms, _ = timed(lambda: butterfly(fr, yk, tw))
+    yp = y0.clone()
+    pms, _ = timed(lambda: butterfly_plain(fr, yp, tw), 3)
+    got = butterfly(fr, y0.clone(), tw)
+    want = butterfly_plain(fr, y0.clone(), tw)
+    put("butterfly", "", [m, 8], ms, pms, 2 * m * 32 + tw.numel() * 4,
+        m // 2 * MUL_OPS["mul"], max_abs(got, want))
+
+    # K6 / K7 at the g16_20 setup ladders' widths; the plain versions on
+    # the first 2^16 points, against the kernels on the same slice
+    from gnark_tpu_torch.ec.jac_ec import (jac_add_mixed,
+                                           jac_add_mixed_plain, jac_double,
+                                           jac_double_plain)
+    gen_t = torch.Generator(device=DEV).manual_seed(5)
+    for g2, npts in ((False, ladder_sizes[0]), (True, ladder_sizes[1])):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
+        Lw = 16 if g2 else 8
+        P = tuple(rand_dev_words(npts, Lw, gen_t) for _ in range(3))
+        bx, by = affine_words(ff, [c.g2 if g2 else c.g1])
+        mask = torch.rand(npts, device=DEV, generator=gen_t) < 0.5
+        pn = 1 << 16
+        sl_ = tuple(a[:pn] for a in P)
+        op, sfx = ("2", "_g2") if g2 else ("", "")
+        for name, fn, pfn, args, k, nbytes in (
+                ("jac_add_mixed", jac_add_mixed, jac_add_mixed_plain,
+                 (bx, by, mask), "jac_madd",
+                 npts * (6 * Lw * 4 + 1) + 2 * Lw * 4),
+                ("jac_double", jac_double, jac_double_plain, (), "jac_dbl",
+                 npts * 6 * Lw * 4)):
+            a_sl = tuple(a[:pn] for a in args[2:]) if args else ()
+            ms, _ = timed(lambda: fn(ff, P, *args))
+            pms, want = timed(lambda: pfn(ff, sl_, *args[:2], *a_sl), 1,
+                              warm=False)
+            got = fn(ff, sl_, *args[:2], *a_sl)
+            put(name, sfx, [npts, Lw], ms, pms, nbytes,
+                npts * MUL_OPS[k + op],
+                max(max_abs(u, v) for u, v in zip(got, want)),
+                plain_shape=[min(pn, npts), Lw])
+        del P, sl_, got, want
+
+
+def rand_dev_words(n, lw, gen):
+    """(n, lw) random words made on the card; the top word of each
+    8-word element is cut below 0x30000000, so every element is < p for
+    both BN254 fields."""
+    import torch
+    w = torch.randint(-2 ** 31, 2 ** 31, (n, lw), dtype=torch.int64,
+                      device=DEV, generator=gen).to(torch.int32)
+    w[:, 7::8] &= 0x2FFFFFFF
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +851,12 @@ KERNELS = {
     "bucket_msm": ("gnark_tpu_torch/csrc/bucket_msm.cu",
                    "gnark_tpu/msm/bucket_kernel.py:304 _msm_device "
                    "(_accumulate_kernel:200)"),
+    "butterfly": ("gnark_tpu_torch/csrc/butterfly.cu",
+                  "gnark_tpu/ff/pallas_ops.py:66 butterfly_p"),
+    "jac_add_mixed": ("gnark_tpu_torch/csrc/jac_ec.cu",
+                      "gnark_tpu/ec/pallas_ec.py:288 jac_add_mixed_p"),
+    "jac_double": ("gnark_tpu_torch/csrc/jac_ec.cu",
+                   "gnark_tpu/ec/pallas_ec.py:370 jac_double_p"),
 }
 
 
@@ -547,7 +891,8 @@ def main(argv) -> int:
         for k, (sec, out) in built.items():
             log(f"build {k}: {sec:.1f} s")
             for line in out.splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("registers", "spill",
+                                           "Function properties")):
                     log("  " + line.strip())
         t1 = time.perf_counter()
         native._lib()
@@ -561,12 +906,16 @@ def main(argv) -> int:
                for k, (s, r) in KERNELS.items()}
         rng = random.Random(2024)
         phase_kernels(rng, res)
+        phase_kernels_jac_ntt(rng, res)
         if quick:
             log(json.dumps({"kernels": list(res.values())}))
             log(smi)
             return 0
-        n_pts = phase_main(res)
-        phase_times(res, rng, n_pts)
+        n_pts, cs = phase_main(res)
+        ladder_sizes = phase_setup(res, cs, rng)
+        del cs
+        phase_merkle(res)
+        phase_times(res, rng, n_pts, ladder_sizes)
         torch.cuda.synchronize()
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,17 +1,22 @@
-"""Groth16 Prove on the card (BN254), and the keys it takes.
+"""Groth16 Setup, Prove and Verify on the card (BN254).
 
-Counterpart of gnark_tpu.backend.groth16 for the prover path without a
-mesh (reference backend/groth16/bn254/prove.go):
+Counterpart of gnark_tpu.backend.groth16 without a mesh (reference
+backend/groth16/bn254/{setup,prove,verify}.go):
 
-  witness solve (host, native solver) -> upload of the solver's raw
-  words -> computeH = 3 iFFT + 3 coset FFT + pointwise (a*b - c)*den +
-  coset iFFT (kernels K2, K1) -> four G1 MSMs and one G2 MSM (kernels
-  K4, K3) -> affine conversion of the five results and the small
-  combination with r, s (host ints).
+  * Setup: toxic waste and the Lagrange-basis A/B/C column evaluation on
+    the host (setup.go:346-436 recurrence, batch-inverted), then one G1
+    and one G2 fixed-base ladder (msm/fixed_base: kernels K7, K6) and
+    their affine conversion (K1); the key columns stay on the card.
+  * Prove: witness solve (host, native solver) -> upload of the solver's
+    raw words -> computeH = 3 iFFT + 3 coset FFT + pointwise (a*b - c)*den
+    + coset iFFT (kernels K5 below 2^14, K2 above; K1) -> four G1 MSMs and
+    one G2 MSM (kernels K4, K3) -> affine conversion of the five results
+    and the small combination with r, s (host ints).
+  * Verify: on the host, e(Ar, Bs) == e(alpha, beta) e(kSum, gamma)
+    e(Krs, delta) through one Tate multi-pairing (pairing/).
 
-Setup and Verify are not ported (they need fixed-base MSM and the
-pairing); keys come from `dummy_setup`, or from the reference's setup
-through `proving_key_from_arrays`. BSB22 commitments are not supported.
+Keys also come from `dummy_setup`, or from plain arrays through
+`proving_key_from_arrays`. BSB22 commitments raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,15 +34,31 @@ from gnark_tpu_torch.cuda import resolve_device
 from gnark_tpu_torch.ec import curves as curves_mod
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ec.fp2 import FF2, get_ff2
-from gnark_tpu_torch.ff import get_ff
+from gnark_tpu_torch.ff import get_ff, on_words
 from gnark_tpu_torch.ff.mont_mul import mont_mul
 from gnark_tpu_torch.logger import get_logger
 from gnark_tpu_torch.msm.bucket import msm_proj
+from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul, jac_to_affine
 from gnark_tpu_torch.ntt import get_domain
+from gnark_tpu_torch.pairing import get_pairing
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length() if n & (n - 1) or n == 0 else n
+
+
+def _batch_inv(vals, q):
+    """Montgomery batch inversion of a list of nonzero ints."""
+    n = len(vals)
+    pre = [1] * (n + 1)
+    for i, v in enumerate(vals):
+        pre[i + 1] = pre[i] * v % q
+    inv_all = pow(pre[n], -1, q)
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = pre[i] * inv_all % q
+        inv_all = inv_all * vals[i] % q
+    return out
 
 
 @dataclasses.dataclass
@@ -117,14 +138,172 @@ def _proj_to_affine_host(ff, hf, P):
     return (hf.mul(X, zi), hf.mul(Y, zi))
 
 
-def _sub_words(ff, a, b):
-    return ff.to_words(ff.sub(ff.from_words(a), ff.from_words(b)))
-
-
 def _words_u64(arr_u64, device) -> torch.Tensor:
     """(..., nl) uint64 host limbs -> (..., 2*nl) int32 device words."""
     from gnark_tpu_torch.ff.mont import FF
     return torch.from_numpy(FF.u64_view(arr_u64).view(np.int32)).to(device)
+
+
+def _mark_fn(timings, device, log, what_prefix):
+    """Phase timer: mark(what) adds the seconds since the last mark to
+    timings[what] (the card synchronized first); a no-op without a dict."""
+    t0 = time.perf_counter()
+
+    def mark(what):
+        nonlocal t0
+        if timings is None:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        timings[what] = timings.get(what, 0.0) + t - t0
+        log.debug("%s phase %-10s %.3fs", what_prefix, what, t - t0)
+        t0 = t
+    return mark
+
+
+# ---------------------------------------------------------------------------
+# Setup
+# ---------------------------------------------------------------------------
+
+def setup_scalars(cs: ConstraintSystem, curve, rng=None) -> dict:
+    """The host half of Setup: toxic waste from rng (the reference's
+    draws, in its order), the Lagrange values L_i(t), and the scalars of
+    the one G1 and the one G2 batch:
+      g1 = [alpha, beta, delta] + A + B + Z + vkK + pkK,
+      g2 = [beta, delta, gamma] + B."""
+    if cs.commitments:
+        raise NotImplementedError("BSB22 commitments are not ported")
+    q = curve.fr.modulus
+    if q != cs.q:
+        raise ValueError("constraint system field != curve scalar field")
+    rnd = rng.randrange if rng is not None else \
+        (lambda n: secrets.randbelow(n - 1) + 1)
+    nb_con, nb_wires, nb_pub = cs.nb_constraints, cs.nb_wires, cs.nb_public
+    N = _next_pow2(max(nb_con, 1))
+
+    t, alpha, beta, gamma, delta = (rnd(q) or 1 for _ in range(5))
+    gamma_inv, delta_inv = pow(gamma, -1, q), pow(delta, -1, q)
+
+    # L_i(t), i = 0..nb_con (recurrence, setup.go:346-436)
+    w = curve.fr.root_of_unity(N)
+    wi = 1
+    tw = []
+    for _ in range(nb_con + 1):
+        tw.append((t - wi) % q)
+        wi = wi * w % q
+    tw_inv = _batch_inv([v if v else 1 for v in tw], q)
+    L = (pow(t, N, q) - 1) * tw_inv[0] % q * pow(N, -1, q) % q
+    A = [0] * nb_wires
+    B = [0] * nb_wires
+    C = [0] * nb_wires
+    for j, con in enumerate(cs.r1cs):
+        for coeff, wire in con.l:
+            A[wire] = (A[wire] + coeff * L) % q
+        for coeff, wire in con.r:
+            B[wire] = (B[wire] + coeff * L) % q
+        for coeff, wire in con.o:
+            C[wire] = (C[wire] + coeff * L) % q
+        L = L * w % q * tw[j] % q * tw_inv[j + 1] % q
+
+    # K columns: (beta*A + alpha*B + C) / gamma (public) or / delta
+    kv = [(beta * A[i] + alpha * B[i] + C[i]) % q for i in range(nb_wires)]
+    vkK = [v * gamma_inv % q for v in kv[:nb_pub]]
+    pkK = [v * delta_inv % q for v in kv[nb_pub:]]
+    # Z column: (t^N - 1) / delta * t^i
+    zdt = (pow(t, N, q) - 1) * delta_inv % q
+    Z = []
+    for _ in range(N):
+        Z.append(zdt)
+        zdt = zdt * t % q
+    return {"N": N, "alpha": alpha, "beta": beta, "gamma": gamma,
+            "delta": delta,
+            "g1": [alpha, beta, delta] + A + B + Z + vkK + pkK,
+            "g2": [beta, delta, gamma] + B}
+
+
+def _host_points(ff, x, y, inf) -> list:
+    """Affine words (a few rows) -> host points."""
+    xs, ys = ff.decode_words(x.cpu()), ff.decode_words(y.cpu())
+    out = []
+    for i, at_inf in enumerate(inf.tolist()):
+        if at_inf:
+            out.append(host.INF)
+        elif isinstance(ff, FF2):
+            out.append((tuple(int(c) for c in xs[i]),
+                        tuple(int(c) for c in ys[i])))
+        else:
+            out.append((int(xs[i]), int(ys[i])))
+    return out
+
+
+def setup(cs: ConstraintSystem, curve_name: str, rng=None, device=None,
+          timings: dict | None = None):
+    """Groth16 trusted setup (insecure single-party, as the reference's)
+    on `device` (None: the card). Returns (pk, vk); the same rng seed as
+    the reference's setup gives the same keys.
+
+    timings: if a dict, filled with seconds per phase (scalars, encode,
+    g1_ladder, g2_ladder, to_affine, vk)."""
+    curve = curves_mod.CURVES[curve_name]
+    device = resolve_device(device)
+    mark = _mark_fn(timings, device, get_logger("gnark_tpu_torch"), "setup")
+    s = setup_scalars(cs, curve, rng)
+    mark("scalars")
+    N, nb_wires, nb_pub = s["N"], cs.nb_wires, cs.nb_public
+    ffp, ffr, ff2 = get_ff(curve.fp.name), get_ff(curve.fr.name), \
+        _g2_field(curve)
+    nbits = curve.fr.bits
+
+    def words(vals):
+        return torch.as_tensor(ffr.encode_words(vals, mont=False),
+                               device=device)
+
+    g1_sc, g2_sc = words(s["g1"]), words(s["g2"])
+    g1_base, g2_base = (_encode_affine_host(f, [g], device)[:2]
+                        for f, g in ((ffp, curve.g1), (ff2, curve.g2)))
+    mark("encode")
+    R = batch_scalar_mul(ffp, g1_base, nbits, g1_sc)
+    mark("g1_ladder")
+    x, y, inf = jac_to_affine(ffp, R)
+    del R
+    mark("to_affine")
+    R = batch_scalar_mul(ff2, g2_base, nbits, g2_sc)
+    mark("g2_ladder")
+    x2, y2, inf2 = jac_to_affine(ff2, R)
+    del R
+    mark("to_affine")
+
+    def cols(lo, hi, g2=False):
+        a, b, c = (x2, y2, inf2) if g2 else (x, y, inf)
+        if g2:
+            return (a[lo:hi].reshape(-1, 2, ff2.nw),
+                    b[lo:hi].reshape(-1, 2, ff2.nw), c[lo:hi])
+        return a[lo:hi], b[lo:hi], c[lo:hi]
+
+    o_a, o_b, o_z = 3, 3 + nb_wires, 3 + 2 * nb_wires
+    o_vk = o_z + N
+    o_pk = o_vk + nb_pub
+    g1_alpha, g1_beta, g1_delta = _host_points(ffp, *cols(0, 3))
+    g2_beta, g2_delta, g2_gamma = _host_points(ff2, *cols(0, 3, True))
+    g1_vk = _host_points(ffp, *cols(o_vk, o_pk))
+    pk = ProvingKey(
+        curve=curve, domain_n=N,
+        g1_a=cols(o_a, o_b), g1_b=cols(o_b, o_z), g1_z=cols(o_z, o_vk),
+        g1_k=cols(o_pk, o_pk + nb_wires - nb_pub),
+        g2_b=cols(3, 3 + nb_wires, True),
+        g1_alpha=g1_alpha, g1_beta=g1_beta, g1_delta=g1_delta,
+        g2_beta=g2_beta, g2_delta=g2_delta)
+    f2h = curve.host_g2_field
+    vk = VerifyingKey(
+        curve=curve, g1_k=g1_vk,
+        g2_gamma_neg=host.ec_neg(f2h, g2_gamma),
+        g2_delta_neg=host.ec_neg(f2h, g2_delta),
+        e_alpha_beta=get_pairing(curve_name).pair(g1_alpha, g2_beta),
+        g1_alpha=g1_alpha, g2_beta=g2_beta, g2_gamma=g2_gamma,
+        g2_delta=g2_delta)
+    mark("vk")
+    return pk, vk
 
 
 def _curve_of_fp(fp_name: str):
@@ -152,7 +331,7 @@ def _g1_stage_fn(fr_name: str, fp_name: str, N: int, nb_pub: int,
         ac = dom.fft(dom.ifft(av), coset=True)
         bc = dom.fft(dom.ifft(bv), coset=True)
         cc = dom.fft(dom.ifft(cv), coset=True)
-        hval = mont_mul(ffr, _sub_words(ffr, mont_mul(ffr, ac, bc), cc),
+        hval = mont_mul(ffr, on_words(ffr, "sub", mont_mul(ffr, ac, bc), cc),
                         den_m)
         h_plain = mont_mul(ffr, dom.ifft(hval, coset=True), one)
         mark("computeH")
@@ -207,20 +386,7 @@ def prove(cs: ConstraintSystem, pk: ProvingKey, public, secret, rng=None,
     device = resolve_device(device)
     if pk.device != device:
         raise ValueError(f"the proving key is on {pk.device}, not {device}")
-    log = get_logger("gnark_tpu_torch")
-    t0 = time.perf_counter()
-
-    def mark(what):
-        nonlocal t0
-        if timings is None:
-            return
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t = time.perf_counter()
-        timings[what] = timings.get(what, 0.0) + t - t0
-        log.debug("prove phase %-10s %.3fs", what, t - t0)
-        t0 = t
-
+    mark = _mark_fn(timings, device, get_logger("gnark_tpu_torch"), "prove")
     sol = solve_auto(cs, public, secret, hint_overrides=hint_overrides)
     mark("solve")
     N = pk.domain_n
@@ -274,6 +440,40 @@ def prove(cs: ConstraintSystem, pk: ProvingKey, public, secret, rng=None,
     krs = host.ec_add(f1, krs, host.ec_mul(f1, bs1, r))
     mark("combine")
     return Proof(ar=ar, krs=krs, bs=bs)
+
+
+# ---------------------------------------------------------------------------
+# Verify
+# ---------------------------------------------------------------------------
+
+def verify(proof: Proof, vk: VerifyingKey, public_values) -> bool:
+    """e(Ar, Bs) == e(alpha, beta) * e(kSum, gamma) * e(Krs, delta),
+    checked as FE(ML(Krs, -delta) ML(Ar, Bs) ML(kSum, -gamma)) ==
+    vk.e_alpha_beta (verify.go:70-143), on the host. Every proof point is
+    validated (on the curve, in the subgroup) first."""
+    if vk.commitment_g2_sigma:
+        raise NotImplementedError("BSB22 commitments are not ported")
+    curve = vk.curve
+    q = curve.fr.modulus
+    if proof.commitments or proof.poks:
+        return False
+    if not host.validate_points(curve, g1_points=[proof.ar, proof.krs],
+                                g2_points=[proof.bs]):
+        return False
+    if len(public_values) != len(vk.g1_k) - 1:
+        raise ValueError(f"want {len(vk.g1_k) - 1} public values, "
+                         f"got {len(public_values)}")
+    f1 = curve.host_fp
+    ksum = vk.g1_k[0]
+    for v, pt in zip(public_values, vk.g1_k[1:]):
+        ksum = host.ec_add(f1, ksum, host.ec_mul(f1, pt, v % q))
+    pairing = get_pairing(curve.name)
+    res = pairing.pairing_product([
+        (proof.krs, vk.g2_delta_neg),
+        (proof.ar, proof.bs),
+        (ksum, vk.g2_gamma_neg),
+    ])
+    return pairing.ext.eq(res, vk.e_alpha_beta)
 
 
 def _words_from_limbs(a) -> np.ndarray:

@@ -9,7 +9,8 @@ A(tau) * B(tau) - C(tau) == H(tau) * (tau^N - 1), with A, B, C
 evaluated from the solver's columns by the barycentric formula.
 
 `synth_square_chain` builds the prove benchmark's circuit (independent
-squaring chains) directly in the IR.
+squaring chains) directly in the IR; `Membership` is the Merkle
+membership circuit of examples/merkle_membership.py at any depth.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from gnark_tpu_torch.constraint.system import (ConstraintSystem,
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.ff import get_ff
+from gnark_tpu_torch.frontend import Circuit, Public, Secret
+from gnark_tpu_torch.std import merkle
+from gnark_tpu_torch.std.hash.mimc import mimc_hash
 
 TABLE = 4096
 OFFSETS = {"g1_a": 0, "g1_b": 1000, "g1_z": 2000, "g1_k": 3000,
@@ -50,6 +54,33 @@ def synth_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
                             outputs=(o,)), [w])
             w = o
     return cs
+
+
+class Membership(Circuit):
+    """examples/merkle_membership.py's circuit: `leaf`, at the position
+    given by the bits `dirs`, hashes up through `path` to the public
+    `root` (MiMC over BN254 fr); the depth is len(path)."""
+    root: Public
+    leaf: Secret
+    path: list[Secret]
+    dirs: list[Secret]
+
+    def __init__(self, depth: int, **kw):
+        self.path = [None] * depth
+        self.dirs = [None] * depth
+        super().__init__(**kw)
+
+    def define(self, api):
+        merkle.verify_proof(api, self.root, self.leaf, self.path, self.dirs)
+
+
+def membership_assignment(depth: int, index: int) -> Membership:
+    """The example's tree (leaves MiMC(i + 1000)) and leaf `index`."""
+    leaves = [mimc_hash([i + 1000]) for i in range(1 << depth)]
+    root, proof = merkle.host_merkle_root(leaves)
+    c = Membership(depth, root=root, leaf=leaves[index])
+    c.path, c.dirs = proof(index)
+    return c
 
 
 def known_log_key(cs, curve, device=None) -> groth16.ProvingKey:
@@ -84,19 +115,6 @@ def _known_sum(vals, offset, q):
     for j, v in enumerate(vals):
         s += ((j + offset) % TABLE + 1) * v
     return s % q
-
-
-def _batch_inv(vals, q):
-    n = len(vals)
-    pre = [1] * (n + 1)
-    for i, v in enumerate(vals):
-        pre[i + 1] = pre[i] * v % q
-    inv_all = pow(pre[n], -1, q)
-    out = [0] * n
-    for i in range(n - 1, -1, -1):
-        out[i] = pre[i] * inv_all % q
-        inv_all = inv_all * vals[i] % q
-    return out
 
 
 def check_prove(cs, pk, public, secret, rng) -> None:
@@ -144,7 +162,7 @@ def check_prove(cs, pk, public, secret, rng) -> None:
         wpows.append(wi)
         dens.append((tau - wi) % q)
         wi = wi * w % q
-    inv = _batch_inv(dens, q)
+    inv = groth16._batch_inv(dens, q)
     zt = (pow(tau, N, q) - 1) % q
     scale = zt * pow(N, -1, q) % q
     ev = []

@@ -5,6 +5,7 @@
   fp2.py         — plain Fp2 over gnark_tpu_torch.ff.FF
   weierstrass.py — plain batched Jacobian ops
   proj_ec.py     — kernel K3, complete projective add / double
+  jac_ec.py      — kernels K6 / K7, complete Jacobian mixed add / double
 """
 
 from gnark_tpu_torch.ec.curves import CURVES, Curve

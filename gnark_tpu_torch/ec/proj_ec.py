@@ -19,6 +19,7 @@ import torch
 
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ec.fp2 import FF2
+from gnark_tpu_torch.ec.weierstrass import _many
 
 
 def is_fp2(ff) -> bool:
@@ -32,20 +33,25 @@ def b3_words(ff, b3) -> np.ndarray:
     return base.encode_words(vals).reshape(-1).view(np.uint32)
 
 
-def kernel_consts(ff, b3):
-    """(field constants, b3 words) for a kernel over ff; raises for a
-    field the kernels do not take."""
+def kernel_field(ff):
+    """Field constants for a kernel over ff (Fp, or Fp2 by its base);
+    raises for a field the kernels do not take."""
     base = ff.base if is_fp2(ff) else ff
     if is_fp2(ff) and ff._nr_small != -1:
         raise ValueError("Fp2 kernels take u^2 = -1 only")
-    return cuda.field_consts(base.p.name), b3_words(ff, b3)
+    return cuda.field_consts(base.p.name)
+
+
+def kernel_consts(ff, b3):
+    """(field constants, b3 words) for a kernel over ff."""
+    return kernel_field(ff), b3_words(ff, b3)
 
 
 def _limbs(ff, a):
-    """(n, Lw) words -> (n, L) or (n, 2, L) limbs, canonical."""
+    """(n, Lw) words < 2p -> (n, L) or (n, 2, L) limbs, canonical."""
     if is_fp2(ff):
         a = a.reshape(a.shape[0], 2, ff.nw)
-    return ff.canon(ff.from_words(a))
+    return (ff.base if is_fp2(ff) else ff)._cond_sub(ff.from_words(a))
 
 
 def _words(ff, a):
@@ -55,15 +61,6 @@ def _words(ff, a):
 def _b3_limbs(ff, b3, device):
     vals = list(b3) if is_fp2(ff) else b3
     return torch.as_tensor(ff.encode(vals), device=device)
-
-
-def _many(f, op: str, pairs):
-    """One batched call of f.op over independent operand pairs (the
-    plain versions are launch-bound at small batch)."""
-    shape = torch.broadcast_shapes(*(t.shape for pr in pairs for t in pr))
-    A = torch.stack([x.expand(shape) for x, _ in pairs])
-    B = torch.stack([y.expand(shape) for _, y in pairs])
-    return getattr(f, op)(A, B).unbind(0)
 
 
 def _const(f, k: int, like):

@@ -314,6 +314,12 @@ class FF:
         return self.pow_bits(a, self.pm2_bits)
 
 
+def on_words(f, op: str, *words):
+    """Plain field op `op` of f (FF or FF2) on word tensors: words in,
+    canonical words out (for the few such ops outside the kernels)."""
+    return f.to_words(getattr(f, op)(*(f.from_words(w) for w in words)))
+
+
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()

@@ -1,0 +1,106 @@
+"""Fixed-base batch scalar multiplication, and the batched affine
+conversion of its result.
+
+Counterpart of gnark_tpu.msm.fixed_base (gnark-crypto
+BatchScalarMultiplicationG1/G2, the device work of Groth16 Setup): one
+base point, n scalars, one double-and-add ladder over the bits, MSB
+first. Each bit is one K7 jac_double of every accumulator and one K6
+jac_add_mixed of the base. The reference's select(bit, R + base, R) is
+the mixed add with the affine operand masked as infinity where the bit
+is 0 (jac_add_mixed returns R there), so no third pass is needed.
+
+Points are (n, Lw) int32 words (Lw = 8 for G1, 16 for flat G2 rows);
+scalars are (n, nw) int32 words of plain (non-Montgomery) integers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gnark_tpu_torch.ec.jac_ec import jac_add_mixed, jac_double
+from gnark_tpu_torch.ec.proj_ec import _lw, is_fp2
+from gnark_tpu_torch.ff import on_words
+from gnark_tpu_torch.ff.mont_mul import mont_mul
+
+
+def jac_infinity_words(ff, n: int, device) -> tuple:
+    """n Jacobian points at infinity (1, 1, 0) as words."""
+    base = ff.base if is_fp2(ff) else ff
+    one = base.encode_words([1] + [0] * (_lw(ff) // base.nw - 1))
+    one = torch.as_tensor(one.reshape(1, -1), device=device)
+    one = one.expand(n, -1).contiguous()
+    return (one, one.clone(), torch.zeros_like(one))
+
+
+def batch_scalar_mul(ff, base_affine, nbits: int, scalars: torch.Tensor):
+    """[s_i] * base for each row of scalars: base_affine is (x, y), one
+    affine point in words ((Lw,) or (1, Lw)); returns Jacobian words."""
+    n = scalars.shape[0]
+    bx, by = (a.reshape(1, -1) for a in base_affine)
+    R = jac_infinity_words(ff, n, scalars.device)
+    for i in range(nbits):
+        R = jac_double(ff, R)
+        b = nbits - 1 - i
+        bit = (scalars[:, b // 32] >> (b % 32)) & 1
+        R = jac_add_mixed(ff, R, bx, by, bit == 0)
+    return R
+
+
+def _inv(f, z):
+    """z^(p-2) (0 -> 0) by square-and-multiply, every step one K1 call
+    over the whole batch."""
+    r = z
+    for bit in bin(f.p.modulus - 2)[3:]:
+        r = mont_mul(f, r, r)
+        if bit == "1":
+            r = mont_mul(f, r, z)
+    return r
+
+
+def _mul2(f, a, b):
+    """Fp2 products (u^2 = -1) of (m, 2, nw) words: the four base
+    products in one K1 call, then c0 = a0 b0 - a1 b1, c1 = a0 b1 + a1 b0."""
+    a0, a1, b0, b1 = a[:, 0], a[:, 1], b[:, 0], b[:, 1]
+    p00, p11, p01, p10 = mont_mul(f, torch.cat([a0, a1, a0, a1]),
+                                  torch.cat([b0, b1, b1, b0])
+                                  ).chunk(4)
+    return torch.stack([on_words(f, "sub", p00, p11),
+                        on_words(f, "add", p01, p10)], 1)
+
+
+def jac_to_affine(ff, P):
+    """Jacobian words -> (x, y, inf), canonical; infinity gives x = y = 0.
+
+    Inversion is Fermat's, a chain of K1 products over the batch (for
+    Fp2 through the norm a0^2 + a1^2); the int64 `inv` of the plain
+    field would take about a minute at 4.2M points."""
+    X, Y, Z = P
+    n = Z.shape[0]
+    inf = (Z == 0).all(-1)
+    if not is_fp2(ff):
+        zi = _inv(ff, Z)
+        zi2 = mont_mul(ff, zi, zi)
+        zi3 = mont_mul(ff, zi2, zi)
+        x, y = mont_mul(ff, torch.cat([X, Y]),
+                        torch.cat([zi2, zi3])).chunk(2)
+        return x, y, inf
+    if ff._nr_small != -1:
+        raise ValueError("jac_to_affine takes Fp2 with u^2 = -1 only")
+    f = ff.base
+    X, Y, Z = (a.reshape(n, 2, f.nw) for a in (X, Y, Z))
+    sq = mont_mul(f, Z.transpose(0, 1).reshape(2 * n, f.nw),
+                  Z.transpose(0, 1).reshape(2 * n, f.nw))
+    di = _inv(f, on_words(f, "add", sq[:n], sq[n:]))
+    z0, z1 = mont_mul(f, Z.transpose(0, 1).reshape(2 * n, f.nw),
+                      torch.cat([di, di])).chunk(2)
+    zi = torch.stack([z0, on_words(f, "neg", z1)], 1)
+    zi2 = _mul2(f, zi, zi)
+    zi3 = _mul2(f, zi2, zi)
+    x, y = _mul2(f, torch.cat([X, Y]), torch.cat([zi2, zi3])).chunk(2)
+    return x.reshape(n, -1), y.reshape(n, -1), inf
+
+
+def batch_scalar_mul_affine(ff, base_affine, nbits: int, scalars):
+    """Like batch_scalar_mul, normalized to (x, y, inf)."""
+    return jac_to_affine(ff, batch_scalar_mul(ff, base_affine, nbits,
+                                              scalars))

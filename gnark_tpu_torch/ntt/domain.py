@@ -2,13 +2,16 @@
 
 Counterpart of gnark_tpu.ntt.domain.Domain (gnark-crypto fft.Domain):
 FFT and FFTInverse, optionally on the coset g*<omega>, over (n, nw)
-int32 word vectors in Montgomery form. Every size n >= 2 runs the
-four-step plan (ntt/fourstep.py: kernels K2 and K1); the radix-2 stage
-path that the reference takes below 2^14 is not ported. The coset and
-n^-1 scalings are K1 products.
+int32 word vectors in Montgomery form. The plan follows the reference's
+size switch: below 2^GNARK_TPU_NTT_FOURSTEP_LOG (default 14, read at each
+transform) and at n = 2 the radix-2 plan (ntt/radix2.py: kernel K5), at
+and above it the four-step plan (ntt/fourstep.py: kernels K2 and K1).
+The coset and n^-1 scalings are K1 products.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -16,6 +19,13 @@ from gnark_tpu_torch.cuda import resolve_device
 from gnark_tpu_torch.ff import FF
 from gnark_tpu_torch.ff.mont_mul import mont_mul
 from gnark_tpu_torch.ntt.fourstep import FourStep, _powers
+from gnark_tpu_torch.ntt.radix2 import Radix2
+
+
+def fourstep_threshold() -> int:
+    """Smallest n that takes the four-step plan (never below 4)."""
+    return max(1 << int(os.environ.get("GNARK_TPU_NTT_FOURSTEP_LOG", "14")),
+               4)
 
 
 class Domain:
@@ -36,7 +46,7 @@ class Domain:
         self.n_inv = pow(n, -1, p)
         self.coset_gen = ff.p.generator % p
         self.coset_gen_inv = pow(self.coset_gen, -1, p)
-        self._fourstep: dict = {}
+        self._plans: dict = {}
         gi = _powers(self.coset_gen_inv, n, p)
         self._coset = self._dev(_powers(self.coset_gen, n, p))
         self._coset_inv_ninv = self._dev([v * self.n_inv % p for v in gi])
@@ -48,12 +58,16 @@ class Domain:
     def _dev(self, vals):
         return torch.as_tensor(self.ff.encode_words(vals), device=self.device)
 
-    def _plan(self, inverse: bool) -> FourStep:
-        if inverse not in self._fourstep:
+    def _plan(self, inverse: bool):
+        """The plan for this size under the current threshold, built on
+        first use and kept."""
+        four = self.n >= fourstep_threshold()
+        key = (four, inverse)
+        if key not in self._plans:
             w = self.omega_inv if inverse else self.omega
-            self._fourstep[inverse] = FourStep(self.ff, self.n, w,
-                                               self.device)
-        return self._fourstep[inverse]
+            plan = FourStep if four else Radix2
+            self._plans[key] = plan(self.ff, self.n, w, self.device)
+        return self._plans[key]
 
     def fft(self, x: torch.Tensor, coset: bool = False) -> torch.Tensor:
         """Coefficients -> evaluations on (a coset of) the domain."""
