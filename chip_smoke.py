@@ -4,21 +4,25 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: the six CUDA kernel libraries (one nvcc each, in parallel)
-     and the native witness solver;
+  2. build: the seven CUDA kernel libraries (one nvcc each, in
+     parallel) and the native witness solver;
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, K2 row_fft (and whole four-step transforms), K3
-     proj_add / proj_double, K4 bucket_msm, in G1 and G2 with edge cases;
-     K5 butterfly (every stage of 2^13, and whole radix-2 transforms),
-     K6 jac_add_mixed / K7 jac_double / K8 jac_add in G1 and G2 with edge
-     cases;
+     proj_add / proj_double, K4 bucket_msm (at c = 8 and at the main
+     path's width; its digit kernel at every width) and K9
+     bucket_reduce (on K4's sums, all buckets empty, one bucket a
+     window, full buckets with equal neighbours and lazy inputs), in G1
+     and G2 with edge cases; K5 butterfly (every stage of 2^13, and
+     whole radix-2 transforms), K6 jac_add_mixed / K7 jac_double / K8
+     jac_add in G1 and G2 with edge cases;
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
-     times; the five MSMs are checked against one host scalar
+     times; each MSM runs the digit kernel, K4 and K9 once and K3 not
+     at all; the five MSMs are checked against one host scalar
      multiplication each, and H by Schwartz-Zippel at a random point;
      then the first prove again with GNARK_TPU_MSM_IMPL=scan (the
-     scan-path MSM: K6, K8, K7, no K4): the same proof, and the five
-     MSMs again against their known values;
+     scan-path MSM: K6, K8, K7, no K4 or K9): the same proof, and the
+     five MSMs again against their known values;
   5. the setup -> prove -> verify path, in three configurations:
      g16_20 (Setup at 2^20: sampled key points against host scalar
      multiplications of the toxic waste, one proof that verifies, one
@@ -30,9 +34,13 @@ Phases (any failure exits non-zero):
      on the scan path that must equal the second, verify; a swapped
      commitment and PoK, and a tampered PoK, do not verify);
   6. every kernel again at the shapes its path gives it, held against
-     its plain version on the same inputs; its launches during its path,
-     its time, its bound and its plain version's time, as one JSON line;
-     then the device as the last line.
+     its plain version on the same inputs (K4 and K9 on the g16_20 setup
+     key's columns, 2^20 distinct points, with K4's grouping and passes
+     timed apart); its launches during its path, its time, its bound and
+     its plain version's time, as one JSON line; the whole bucket MSM at
+     each window width of SWEEP_C on those columns and their first 2^16
+     and 2^13 points (one group element at every width); then the card's
+     name and power limit, and the device as the last line.
 
 Option: --quick stops after phase 3.
 """
@@ -71,6 +79,7 @@ N_CHAINS, CHAIN_LEN = 2048, 512      # 2^20 constraints
 SETUP_SEED = 7
 MERKLE_DEPTH = 12                    # 7,957 constraints, N = 2^13
 RC_VALUES = 1 << 17                  # rc_20: ~720,900 constraints, N = 2^20
+C_MAIN = 8            # the bucket MSM's width at 2^20 points; set in main
 
 
 def log(*a):
@@ -181,9 +190,11 @@ def phase_kernels(rng, res):
                                             proj_double, proj_double_plain)
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
-    from gnark_tpu_torch.msm.bucket import (bucket_msm, bucket_msm_plain,
-                                            curve_b3, curve_b3_g2,
-                                            signed_digits)
+    from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
+                                            bucket_msm_plain,
+                                            bucket_reduce,
+                                            bucket_reduce_plain, curve_b3,
+                                            curve_b3_g2, signed_digits)
     from gnark_tpu_torch.msm.pippenger import scalar_limbs
     from gnark_tpu_torch.ntt import Domain
     from gnark_tpu_torch.ntt.fourstep import dif_stage_tw, row_fft, \
@@ -271,7 +282,9 @@ def phase_kernels(rng, res):
             f"{cuda_ms(lambda: proj_add(ff, b3, A, B)):.4f} ms, double "
             f"{cuda_ms(lambda: proj_double(ff, b3, A)):.4f} ms")
 
-        # K4: 2^12 points with infinity points, zero scalars, duplicates
+        # K4 at c = 8 and at the card's width for the main path: 2^12
+        # points with infinity points, zero scalars, duplicates; K9 on its
+        # bucket sums
         pts = [base[rng.randrange(64)] for _ in range(n)]
         ks = [rng.randrange(c.fr.modulus) for _ in range(n)]
         inf = torch.zeros(n, dtype=torch.bool, device=DEV)
@@ -281,20 +294,89 @@ def phase_kernels(rng, res):
         for i in range(20, 40):
             ks[i] = 1                               # skew: bucket 0
         x, y = affine_words(ff, pts)
-        digits = signed_digits(scalar_limbs(torch.as_tensor(
-            fr.encode_words(ks, mont=False), device=DEV)), 254, 8)
-        got = bucket_msm(ff, b3, x, y, inf, digits)
-        want = bucket_msm_plain(ff, b3, x, y, inf, digits)
-        err = proj_err(ff, got, want)
-        check(err == 0, f"K4 bucket_msm {tag}")
-        res["bucket_msm"]["max_abs_err"] = max(
-            res["bucket_msm"]["max_abs_err"] or 0, err)
-        log(f"K4 bucket_msm {tag}: ({n}, {x.shape[1]}) points, digits "
-            f"{tuple(digits.shape)}, equal as group elements; "
-            f"{cuda_ms(lambda: bucket_msm(ff, b3, x, y, inf, digits)):.4f}"
-            f" ms")
+        sc = torch.as_tensor(fr.encode_words(ks, mont=False), device=DEV)
+        for cc in sorted({8, C_MAIN}):
+            digits = bucket_digits(sc, 254, cc)
+            got = bucket_msm(ff, b3, x, y, inf, digits, cc)
+            want = bucket_msm_plain(ff, b3, x, y, inf, digits, cc)
+            err = proj_err(ff, got, want)
+            check(err == 0, f"K4 bucket_msm {tag} c={cc}")
+            res["bucket_msm"]["max_abs_err"] = max(
+                res["bucket_msm"]["max_abs_err"] or 0, err)
+            W = digits.shape[0]
+            R = bucket_reduce(ff, b3, got, W, cc)
+            err = proj_err(ff, R, bucket_reduce_plain(ff, b3, got, W, cc))
+            check(err == 0, f"K9 bucket_reduce {tag} c={cc} on K4's sums")
+            res["bucket_reduce"]["max_abs_err"] = max(
+                res["bucket_reduce"]["max_abs_err"] or 0, err)
+            log(f"K4 bucket_msm {tag} c={cc}: ({n}, {x.shape[1]}) points, "
+                f"digits {tuple(digits.shape)}, equal as group elements; "
+                f"{cuda_ms(lambda: bucket_msm(ff, b3, x, y, inf, digits, cc)):.4f}"
+                f" ms; K9 on its {W << (cc - 1)} bucket sums equal as a group "
+                f"element")
+        k9_edges(ff, hf, b3, gen, base, rng, g2, res)
+    # the digit kernel of K4 against signed_digits at every width
+    ks = [rng.randrange(c.fr.modulus) for _ in range(4093)] + \
+        [0, 1, c.fr.modulus - 1]
+    sc = torch.as_tensor(fr.encode_words(ks, mont=False), device=DEV)
+    for cc in range(2, 17):
+        got = bucket_digits(sc, 254, cc)
+        want = signed_digits(scalar_limbs(sc), 254, cc)
+        check(torch.equal(got, want), f"K4 bucket_digits c={cc}")
+    res["bucket_digits"]["max_abs_err"] = 0
+    log("K4 bucket_digits: (4096, 8) scalars at c = 2..16 bit-exact")
     for k, v in err3.items():
         res[k]["max_abs_err"] = v
+
+
+def k9_edges(ff, hf, b3, gen, base, rng, g2, res):
+    """K9 against its plain version as group elements: all buckets empty,
+    one non-empty bucket per window (and the host's value), and at c = 8
+    every bucket full with lazy X coordinates in [p, 2p) and equal
+    neighbours (the doubling case of the running sums)."""
+    import torch
+    from gnark_tpu_torch.backend.groth16 import _to_affine_host
+    from gnark_tpu_torch.ec import host
+    from gnark_tpu_torch.msm.bucket import (bucket_reduce,
+                                            bucket_reduce_plain,
+                                            digit_count)
+    tag = "G2" if g2 else "G1"
+    for cc in sorted({8, C_MAIN, 16}):
+        W, B = digit_count(254, cc), 1 << (cc - 1)
+        P = point_words(ff, hf, [host.INF], rng, g2, 0)
+        P = tuple(a.expand(W * B, -1).contiguous() for a in P)
+        R = bucket_reduce(ff, b3, P, W, cc)
+        check(_to_affine_host(ff, hf, "proj", R) == host.INF,
+              f"K9 {tag} c={cc}: empty buckets do not give the identity")
+        pts = [base[rng.randrange(64)] for _ in range(W)]
+        js = [rng.randrange(B) for _ in range(W)]
+        Q = point_words(ff, hf, pts, rng, g2, W // 2)
+        rows = torch.as_tensor([w * B + j for w, j in enumerate(js)],
+                               device=DEV)
+        for a, q in zip(P, Q):
+            a[rows] = q
+        R = bucket_reduce(ff, b3, P, W, cc)
+        err = proj_err(ff, R, bucket_reduce_plain(ff, b3, P, W, cc))
+        want = host.ec_msm(hf, pts, [(j + 1) << (cc * w)
+                                     for w, j in enumerate(js)])
+        check(err == 0 and _to_affine_host(ff, hf, "proj", R) == want,
+              f"K9 {tag} c={cc}: one bucket a window")
+        res["bucket_reduce"]["max_abs_err"] = max(
+            res["bucket_reduce"]["max_abs_err"] or 0, err)
+    W, B = 32, 128
+    pts = [base[rng.randrange(64)] for _ in range(W * B)]
+    for i in range(0, W * B, 2):
+        pts[i + 1] = pts[i]                       # equal neighbours
+    for i in range(0, W * B, 97):
+        pts[i] = host.INF
+    P = point_words(ff, hf, pts, rng, g2, W * B // 2)
+    R = bucket_reduce(ff, b3, P, W, 8)
+    err = proj_err(ff, R, bucket_reduce_plain(ff, b3, P, W, 8))
+    check(err == 0, f"K9 {tag} c=8: full buckets, lazy inputs")
+    log(f"K9 bucket_reduce {tag}: empty buckets, one bucket a window (c = "
+        f"{sorted({8, C_MAIN, 16})}, host-checked), {W * B} full buckets "
+        f"with equal neighbours and X in [p, 2p): equal as group elements; "
+        f"{cuda_ms(lambda: bucket_reduce(ff, b3, P, W, 8)):.4f} ms at c = 8")
 
 
 @contextlib.contextmanager
@@ -325,11 +407,12 @@ def all_wrappers():
     from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_mixed, jac_double
     from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
     from gnark_tpu_torch.ff.mont_mul import mont_mul
-    from gnark_tpu_torch.msm.bucket import bucket_msm
+    from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
+                                            bucket_reduce)
     from gnark_tpu_torch.ntt.fourstep import row_fft
     from gnark_tpu_torch.ntt.radix2 import butterfly
     return (mont_mul, row_fft, proj_add, proj_double, bucket_msm, butterfly,
-            jac_add_mixed, jac_double, jac_add)
+            jac_add_mixed, jac_double, jac_add, bucket_reduce, bucket_digits)
 
 
 def scan_prove(what, fn):
@@ -345,7 +428,8 @@ def scan_prove(what, fn):
     log(f"launches during the {what} scan-path prove: {json.dumps(launches)}")
     for k in ("jac_add", "jac_add_mixed", "jac_double"):
         check(launches[k] > 0, f"{what} scan path: {k} was not launched")
-    check(launches["bucket_msm"] == 0, f"{what} scan path launched K4")
+    for k in ("bucket_msm", "bucket_reduce", "bucket_digits"):
+        check(launches[k] == 0, f"{what} scan path launched {k}")
     return out, launches
 
 
@@ -529,7 +613,8 @@ def phase_main(res):
     from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.ff.mont_mul import mont_mul
-    from gnark_tpu_torch.msm.bucket import bucket_msm
+    from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
+                                            bucket_reduce)
     from gnark_tpu_torch.ntt import get_domain
     from gnark_tpu_torch.ntt.fourstep import row_fft
 
@@ -550,7 +635,8 @@ def phase_main(res):
     log(f"main path: domain tables and solver load in "
         f"{time.perf_counter() - t:.2f} s")
 
-    wrappers = (mont_mul, row_fft, proj_add, proj_double, bucket_msm)
+    wrappers = (mont_mul, row_fft, proj_add, proj_double, bucket_digits,
+                bucket_msm, bucket_reduce)
     for wr in wrappers:
         wr.launches = 0
     proofs = []
@@ -569,8 +655,15 @@ def phase_main(res):
     launches = {wr.__name__: wr.launches for wr in wrappers}
     log("launches during 3 proves: " + json.dumps(launches))
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
         res[k]["launches"] = v
+        if k in ("proj_add", "proj_double"):
+            check(v == 0, f"K3 {k} was launched {v} times on the main path "
+                  f"(the epilogue is K9's)")
+        else:
+            check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in ("bucket_digits", "bucket_msm", "bucket_reduce"):
+        check(launches[k] == 3 * 5, f"{k} launched {launches[k]} times in "
+              f"3 proves, not once for each of the 5 MSMs")
     t = time.perf_counter()
     try:
         check_prove(cs, pk, [], [j + 2 for j in range(N_CHAINS)],
@@ -714,7 +807,8 @@ def phase_setup(res, cs, rng):
     check(not groth16.verify(bad, vk, []),
           "g16_20: verify accepted Ar and Krs of two proofs")
     log("g16_20 verify of Ar from one proof and Krs from another: False")
-    return 3 + 3 * cs.nb_wires + pk.domain_n, 3 + cs.nb_wires
+    return (3 + 3 * cs.nb_wires + pk.domain_n, 3 + cs.nb_wires), \
+        (pk.g1_a, pk.g2_b)
 
 
 def phase_merkle(res):
@@ -830,12 +924,15 @@ def sync():
 # phase 6: kernels at their paths' shapes
 # ---------------------------------------------------------------------------
 
-def phase_times(res, rng, n_pts, ladder_sizes, n=1 << 20):
-    """Each kernel at the shapes its path gives it (a domain of n, n_pts
-    points for K4, a stage of 2^13 for K5, the G1 and G2 setup ladders'
-    widths for K6 and K7, the scan path's widest group-fold step for
-    K8): timed, and held against its plain version on the same inputs; a
-    disagreement fails the run."""
+def phase_times(res, rng, n_pts, ladder_sizes, key_cols, n=1 << 20):
+    """Each kernel at the shapes its path gives it (a domain of n; for K4
+    and K9 the g16_20 setup key's A (G1) and B (G2) columns, 2^20 + 2049
+    distinct points, with random scalars, at the main path's width and at
+    c = 8, the grouping and the two passes also timed apart; a stage of
+    2^13 for K5, the G1 and G2 setup ladders' widths for K6 and K7, the
+    scan path's widest group-fold step for K8): timed, and held against
+    its plain version on the same inputs; a disagreement fails the
+    run."""
     import torch
     from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.ec.fp2 import get_ff2
@@ -843,11 +940,7 @@ def phase_times(res, rng, n_pts, ladder_sizes, n=1 << 20):
                                             proj_double, proj_double_plain)
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
-    from gnark_tpu_torch.msm.bucket import (BUCKETS, bucket_msm,
-                                            bucket_msm_plain, curve_b3,
-                                            curve_b3_g2, group_pairs,
-                                            signed_digits)
-    from gnark_tpu_torch.msm.pippenger import scalar_limbs
+    from gnark_tpu_torch.msm.bucket import curve_b3
     from gnark_tpu_torch.ntt.fourstep import (dif_stage_tw, row_fft,
                                               row_fft_plain)
     rate = int_mul_rate()
@@ -887,11 +980,12 @@ def phase_times(res, rng, n_pts, ladder_sizes, n=1 << 20):
         2 * n * 32 + tw.numel() * 4,
         n // 2 * (S.bit_length() - 1) * MUL_OPS["mul"], max_abs(got, want))
     del x, got, want
-    # K3: the epilogue's widest scan step (W * B/2 pairs, W = 32 windows)
-    # and its one-point Horner adds and doubles
+    # K3 at the shapes of the bucket epilogue that K9 replaced on the main
+    # path (its widest suffix-sum step at c = 8, W * B/2 pairs, and its
+    # one-point Horner adds and doubles)
     fp = get_ff("bn254_fp")
     b3 = curve_b3(c.fp.name)
-    wide = 32 * BUCKETS // 2
+    wide = 32 * 128 // 2
     for name, sfx, w, fn, pfn, k, nin in (
             ("proj_add", "", wide, proj_add, proj_add_plain, "proj_add", 6),
             ("proj_add", "_1", 1, proj_add, proj_add_plain, "proj_add", 6),
@@ -903,46 +997,8 @@ def phase_times(res, rng, n_pts, ladder_sizes, n=1 << 20):
         pms, want = timed(lambda: pfn(fp, b3, *args), 3)
         put(name, sfx, [w, 8], ms, pms, (nin + 3) * w * 32, w * MUL_OPS[k],
             max(max_abs(u, v) for u, v in zip(got, want)))
-    # K4 at the main path's MSM size, G1 and G2
-    from gnark_tpu_torch.ec import host
-    ks = torch.as_tensor(fr.encode_words(
-        [rng.randrange(c.fr.modulus) for _ in range(4096)], mont=False),
-        device=DEV)
-    idx = torch.randint(0, 4096, (n_pts,), device=DEV)
-    digits = signed_digits(scalar_limbs(ks[idx]), 254, 8)
-    inf = torch.zeros(n_pts, dtype=torch.bool, device=DEV)
-    W = digits.shape[0]
-    ent, ss, sl, so = group_pairs(digits, inf)
-    pairs, nseg = ent.numel(), ss.numel()
-    for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
-        hf = c.host_g2_field if g2 else c.host_fp
-        gen = c.g2 if g2 else c.g1
-        bb = curve_b3_g2(c.fp.name) if g2 else b3
-        base = [gen]
-        for _ in range(255):
-            base.append(host.ec_add(hf, base[-1], gen))
-        x0, y0 = affine_words(ff, base)
-        pidx = torch.randint(0, 256, (n_pts,), device=DEV)
-        x, y = x0[pidx].contiguous(), y0[pidx].contiguous()
-        Lw = x.shape[1]
-        ms, got = timed(lambda: bucket_msm(ff, bb, x, y, inf, digits))
-        op = "2" if g2 else ""
-        nmul = (pairs - nseg) * MUL_OPS["proj_madd" + op] + \
-            nseg * MUL_OPS["proj_add" + op]
-        nbytes = n_pts * 2 * Lw * 4 + pairs * 4 + nseg * 8 + \
-            (W * BUCKETS + 1) * 4 + W * BUCKETS * 3 * Lw * 4 + W * n_pts * 4
-        # G2's plain version at full size takes minutes: it runs on the
-        # first 2^16 points, against the kernel on the same slice
-        pn = min(1 << 16, n_pts) if g2 else n_pts
-        sl_ = (x[:pn], y[:pn], inf[:pn], digits[:, :pn])
-        pms, want = timed(lambda: bucket_msm_plain(ff, bb, *sl_), 1,
-                          warm=False)
-        if g2:
-            got = bucket_msm(ff, bb, *sl_)
-        put("bucket_msm", "_g2" if g2 else "", [n_pts, Lw], ms, pms, nbytes,
-            nmul, proj_err(ff, got, want), plain_shape=[pn, Lw])
-    del x, y, got, want, digits, ent
+    times_k4_k9(res, rate, put, key_cols)
+    sweep_widths(key_cols)
 
     # K5: one stage of merkle_d12's 2^13 domain (its widest, half = 2^12)
     from gnark_tpu_torch.ntt.radix2 import (butterfly, butterfly_plain,
@@ -1018,6 +1074,130 @@ def phase_times(res, rng, n_pts, ladder_sizes, n=1 << 20):
         del P, sl_, got, want
 
 
+def k9_work(W, c):
+    """(adds, doublings) that the function of K9 needs at width c over W
+    windows, whatever the kernel's own decomposition: two adds a bucket
+    (a running sum and a weighted sum), then Horner over the windows."""
+    return 2 * (W << (c - 1)) + W - 1, c * (W - 1)
+
+
+def times_k4_k9(res, rate, put, key_cols):
+    """K4 (the digit kernel, the grouping, pass 1 and pass 2 timed apart)
+    and K9 on the g16_20 setup key's A and B columns with random scalars,
+    at the main path's width and at c = 8. The plain K4 runs on the whole
+    G1 column at the main width, else on the first 2^16 points (against
+    the kernel on the same slice)."""
+    import torch
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.msm.bucket import (
+        _b3, _flat_points, bucket_acc, bucket_digits, bucket_fold,
+        bucket_group, bucket_msm, bucket_msm_plain, bucket_reduce,
+        bucket_reduce_plain, signed_digits)
+    from gnark_tpu_torch.msm.pippenger import scalar_limbs
+    c = curves.CURVES["bn254"]
+    gen_t = torch.Generator(device=DEV).manual_seed(6)
+    for g2, col in ((False, key_cols[0]), (True, key_cols[1])):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        b3 = _b3(ff)
+        x, y, inf = _flat_points(ff, col)
+        n, Lw = x.shape
+        sc = rand_dev_words(n, 8, gen_t)
+        op, gs = ("2", "_g2") if g2 else ("", "")
+        for cc, cs in ((C_MAIN, ""), (8, "_c8")):
+            if cs and cc == C_MAIN:
+                continue
+            sfx = cs + gs
+            if not g2:
+                ms, digits = timed(lambda: bucket_digits(sc, 254, cc))
+                pms, want = timed(lambda: signed_digits(scalar_limbs(sc),
+                                                        254, cc), 3)
+                W = digits.shape[0]
+                put("bucket_digits", cs, [n, 8], ms, pms, n * 32 + W * n * 4,
+                    0, 0 if torch.equal(digits, want) else 1)
+            digits = bucket_digits(sc, 254, cc)
+            W, B = digits.shape[0], 1 << (cc - 1)
+            grp = bucket_group(digits, inf, cc)
+            part = bucket_acc(ff, b3, x, y, grp)
+            split = {"group_ms": cuda_ms(lambda: bucket_group(digits, inf,
+                                                              cc)),
+                     "pass1_ms": cuda_ms(lambda: bucket_acc(ff, b3, x, y,
+                                                            grp)),
+                     "pass2_ms": cuda_ms(lambda: bucket_fold(ff, b3, grp,
+                                                             part))}
+            del part
+            ms, got = timed(lambda: bucket_msm(ff, b3, x, y, inf, digits,
+                                               cc))
+            pairs, nseg = int(grp.counts.sum()), int(grp.seg_off[-1])
+            nmul = (pairs - nseg) * MUL_OPS["proj_madd" + op] + \
+                nseg * MUL_OPS["proj_add" + op]
+            nbytes = n * (2 * Lw * 4 + 1) + W * n * 4 + pairs * 8 + \
+                W * B * (3 * Lw * 4 + 12)
+            pn = n if not (g2 or cs) else 1 << 16
+            sl_ = (x[:pn], y[:pn], inf[:pn], digits[:, :pn])
+            pms, want = timed(lambda: bucket_msm_plain(ff, b3, *sl_, cc), 1,
+                              warm=False)
+            ref = got if pn == n else bucket_msm(ff, b3, *sl_, cc)
+            put("bucket_msm", sfx, [n, Lw, cc], ms, pms, nbytes, nmul,
+                proj_err(ff, ref, want), plain_shape=[pn, Lw, cc])
+            res["bucket_msm"]["split" + sfx] = split
+            log(f"bucket_msm{sfx} split: {json.dumps(split)}; {pairs} "
+                f"pairs, {nseg} segments")
+            del want, ref, grp
+            # K9 on these bucket sums
+            ms, R = timed(lambda: bucket_reduce(ff, b3, got, W, cc))
+            pms, Rp = timed(lambda: bucket_reduce_plain(ff, b3, got, W, cc),
+                            1, warm=False)
+            adds, dbls = k9_work(W, cc)
+            put("bucket_reduce", sfx, [W * B, Lw, cc], ms, pms,
+                W * B * 3 * Lw * 4 + 3 * Lw * 4,
+                adds * MUL_OPS["proj_add" + op] +
+                dbls * MUL_OPS["proj_dbl" + op], proj_err(ff, R, Rp))
+            del got
+        torch.cuda.empty_cache()
+
+
+SWEEP_C = (8, 10, 12, 13, 14, 16)
+
+
+def sweep_widths(key_cols):
+    """The whole bucket MSM (digit kernel, K4, K9), as a prove calls it,
+    at each width of SWEEP_C (through GNARK_TPU_MSM_C) on the g16_20
+    setup key's A (G1) and B (G2) columns and on their first 2^16 and
+    2^13 points, with random scalars: median of 3 by CUDA events. The
+    table msm/bucket._CARD_C comes from it. The widths' results must be
+    one group element."""
+    import torch
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.msm.bucket import msm_proj, window_bits
+    c = curves.CURVES["bn254"]
+    gen_t = torch.Generator(device=DEV).manual_seed(8)
+    for g2, col in ((False, key_cols[0]), (True, key_cols[1])):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        n0 = col[0].shape[0]
+        sc = rand_dev_words(n0, 8, gen_t)
+        for n in (n0, 1 << 16, 1 << 13):
+            pts = tuple(a[:n] for a in col)
+            row, first = {}, None
+            for cc in SWEEP_C:
+                with setenv("GNARK_TPU_MSM_C", str(cc)):
+                    row[cc], R = timed(lambda: msm_proj(ff, pts, sc[:n],
+                                                        254), 3)
+                first = first or R
+                check(proj_err(ff, R, first) == 0,
+                      f"bucket MSM at c = {cc} differs from c = "
+                      f"{SWEEP_C[0]} ({n} points)")
+            log(f"bucket MSM width sweep, {'G2' if g2 else 'G1'}, {n} "
+                f"points, ms by c: {json.dumps(row)}; best c = "
+                f"{min(row, key=row.get)}, default c = "
+                f"{window_bits(n, DEV)}; one group element at every c")
+        del sc
+        torch.cuda.empty_cache()
+
+
 def rand_dev_words(n, lw, gen):
     """(n, lw) random words made on the card; the top word of each
     8-word element is cut below 0x30000000, so every element is < p for
@@ -1052,11 +1232,19 @@ KERNELS = {
                    "gnark_tpu/ec/pallas_ec.py:370 jac_double_p"),
     "jac_add": ("gnark_tpu_torch/csrc/jac_ec.cu",
                 "gnark_tpu/ec/pallas_ec.py:264 jac_add_p"),
+    "bucket_reduce": ("gnark_tpu_torch/csrc/bucket_reduce.cu",
+                      "gnark_tpu/ec/pallas_ec.py:316 proj_add_p and :346 "
+                      "proj_double_p as gnark_tpu/msm/bucket_kernel.py:"
+                      "372-404 (_msm_device's epilogue) calls them"),
+    "bucket_digits": ("gnark_tpu_torch/csrc/bucket_msm.cu",
+                      "gnark_tpu/msm/bucket_kernel.py:100 signed_digits "
+                      "(XLA, no Pallas kernel), in _msm_bucket_jit:300"),
 }
 
 
 def main(argv) -> int:
     quick = "--quick" in argv
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1099,6 +1287,10 @@ def main(argv) -> int:
                    "plain_ms": None, "bound_ms": None, "bound_by": None,
                    "library_ms": None}
                for k, (s, r) in KERNELS.items()}
+        from gnark_tpu_torch.msm.bucket import window_bits
+        global C_MAIN
+        C_MAIN = window_bits(1 << 20, DEV)
+        log(f"bucket MSM window width at 2^20 points: c = {C_MAIN}")
         rng = random.Random(2024)
         phase_kernels(rng, res)
         phase_kernels_jac_ntt(rng, res)
@@ -1109,12 +1301,14 @@ def main(argv) -> int:
         n_pts, cs, pk, proof = phase_main(res)
         phase_scan(res, cs, pk, proof)
         del pk, proof
-        ladder_sizes = phase_setup(res, cs, rng)
+        ladder_sizes, key_cols = phase_setup(res, cs, rng)
         del cs
         phase_merkle(res)
         phase_rc20(res)
-        phase_times(res, rng, n_pts, ladder_sizes)
+        phase_times(res, rng, n_pts, ladder_sizes, key_cols)
         torch.cuda.synchronize()
+        log(f"chip_smoke: every phase passed, "
+            f"{time.perf_counter() - t_start:.1f} s in all")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

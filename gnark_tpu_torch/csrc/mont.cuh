@@ -49,6 +49,14 @@ struct Fp2 {
   Fp c0, c1;
 };
 
+// Words of one element in a row of a point array, and the threads that
+// hold one element (fp2s.cuh splits an Fp2 across two).
+template <class E>
+struct Row {
+  static constexpr int W = sizeof(E) / 4;
+  static constexpr int lanes = 1;
+};
+
 static inline Fp fp_from_host(const uint32_t* c) {
   Fp r;
   for (int i = 0; i < GT_NW; ++i) r.w[i] = c[i];

@@ -97,7 +97,7 @@ template <class E>
 __device__ __forceinline__ void ld_proj(Proj<E>& r, const uint32_t* x,
                                         const uint32_t* y, const uint32_t* z,
                                         long long i) {
-  constexpr int W = sizeof(E) / 4;
+  constexpr int W = Row<E>::W;
   ld(r.X, x + i * W);
   ld(r.Y, y + i * W);
   ld(r.Z, z + i * W);
@@ -107,7 +107,7 @@ template <class E>
 __device__ __forceinline__ void st_proj(uint32_t* x, uint32_t* y,
                                         uint32_t* z, long long i,
                                         const Proj<E>& r) {
-  constexpr int W = sizeof(E) / 4;
+  constexpr int W = Row<E>::W;
   st(x + i * W, r.X);
   st(y + i * W, r.Y);
   st(z + i * W, r.Z);

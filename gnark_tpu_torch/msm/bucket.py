@@ -1,14 +1,19 @@
-"""Bucket MSM: signed-digit Pippenger with kernel K4 and a K3 epilogue.
+"""Bucket MSM: signed-digit Pippenger with kernels K4 and K9.
 
 Counterpart of gnark_tpu.msm.bucket_kernel. Algorithm:
-  * scalars -> signed c-bit digits d in [-2^(c-1), 2^(c-1)], c = 8, so
-    B = 128 bucket magnitudes for each of the W = 32 windows of a 254-bit
-    scalar (the sign flips y);
-  * K4 bucket_msm sums each (window, bucket)'s points (see
-    csrc/bucket_msm.cu for the sort-and-segment design);
-  * epilogue through K3, in the reference's order: two suffix sums over
-    the 128 buckets (sum_j (j+1) P_j), then Horner over the windows with
-    c doublings each. There is one group of points, so no group fold.
+  * scalars -> signed c-bit digits d in [-2^(c-1), 2^(c-1)], so B =
+    2^(c-1) bucket magnitudes for each of the W = ceil(254 / c) (+1)
+    windows of a 254-bit scalar (the sign flips y);
+  * K4 bucket_msm sums each (window, bucket)'s points (csrc/bucket_msm.cu:
+    a counting sort of the pairs by bucket, then segment sums and folds);
+  * K9 bucket_reduce (csrc/bucket_reduce.cu) turns the W*B bucket sums
+    into the MSM's point: sum_w 2^(c w) sum_j (j+1) P_{w,j}, in one
+    launch. There is one group of points, so no group fold.
+The window width c: GNARK_TPU_MSM_C when it is set (read at each call;
+the reference reads it once, at import), else 8 on the CPU (the
+reference's default) and on the card the width that `_CARD_C` gives for
+the number of points (from chip_smoke.py's sweep on one H100). The MSM's
+value does not depend on c.
 The bucket state and the epilogue are Renes-Costello projective with
 identity (0 : 1 : 0); the public `msm_bucket*` return Jacobian points.
 """
@@ -17,21 +22,42 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
+from typing import NamedTuple
 
 import torch
 
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ec.proj_ec import (_limbs, _lw, _words, is_fp2,
                                         kernel_consts, proj_add,
-                                        proj_add_formula, proj_double,
+                                        proj_add_formula, proj_dbl_formula,
                                         proj_madd_formula)
 from gnark_tpu_torch.ec.weierstrass import proj_to_jac, to_limbs, to_words
 from gnark_tpu_torch.msm.pippenger import (_suffix_sums, scalar_limbs,
-                                           window_digits)
+                                          window_digits)
 
-C_BITS = 8
-BUCKETS = 1 << (C_BITS - 1)       # bucket magnitudes per window
-SEG = 32                          # pairs a K4 thread accumulates at most
+C_BITS = 8                        # the reference's width; the CPU default
+SEG = 32                          # pairs a K4 pass-1 thread sums at most
+FOLD = 32                         # partials a K4 pass-2 thread adds at most
+# The card's window width by MSM size (points at most, c), from
+# chip_smoke.py's sweep of c in {8, 10, 12, 13, 14, 16} at 2^13, 2^16 and
+# 2^20 + 2049 points in G1 and G2 on one H100: 8 was best or within 3%
+# up to 2^16, 13 at 2^20 (the epilogue, K9, costs the same few ms at any
+# size and width, so small MSMs gain nothing from wider windows).
+_CARD_C = ((1 << 17, 8), (1 << 30, 13))
+
+
+def window_bits(n: int, device) -> int:
+    """The bucket path's window width c for n points on `device`."""
+    env = os.environ.get("GNARK_TPU_MSM_C")
+    if env:
+        c = int(env)
+        if not 2 <= c <= 16:
+            raise ValueError(f"GNARK_TPU_MSM_C={env}: want 2 <= c <= 16")
+        return c
+    if torch.device(device).type == "cpu":
+        return C_BITS
+    return next(c for lim, c in _CARD_C if n <= lim)
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,25 +104,28 @@ def signed_digits(scalars: torch.Tensor, nbits: int, c: int):
     return torch.stack(outs, dim=0)
 
 
-def group_pairs(digits: torch.Tensor, inf: torch.Tensor, seg: int = SEG):
+def group_pairs(digits: torch.Tensor, inf: torch.Tensor, seg: int = SEG,
+                c: int = C_BITS):
     """Group the (point, digit) pairs by (window, bucket) key and cut
-    each bucket's list into segments of at most `seg` pairs.
+    each bucket's list into segments of at most `seg` pairs (plain
+    version of K4's grouping; the kernel's is `bucket_group`).
 
     Returns int32 tensors: entries (point index * 2 + [digit < 0],
     sorted by key), seg_start and seg_len (one per segment, into
     entries), seg_off (W*B + 1: the segments of bucket b are
     seg_off[b] .. seg_off[b+1])."""
     W, n = digits.shape
+    B = 1 << (c - 1)
     dev = digits.device
     d = digits.masked_fill(inf[None, :], 0)
     mag = d.abs()
     valid = mag > 0
     wins = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
-    key = (wins * BUCKETS + mag - 1)[valid]
+    key = (wins * B + mag - 1)[valid]
     ent = (2 * torch.arange(n, dtype=torch.int32, device=dev)[None, :]
            + (d < 0).to(torch.int32))[valid]
     entries = ent[torch.argsort(key)]
-    nb = W * BUCKETS
+    nb = W * B
     counts = torch.bincount(key.long(), minlength=nb)
     starts = torch.cumsum(counts, 0) - counts
     nseg = (counts + seg - 1) // seg
@@ -118,17 +147,21 @@ def _identity(ff, shape, device):
     return (torch.zeros_like(one), one.clone(), torch.zeros_like(one))
 
 
-def bucket_msm_plain(ff, b3, x, y, inf, digits):
-    """Plain version of bucket_msm over int64 limbs, on the same
-    segments: the same bucket sums as group elements (the order of the
-    additions, and so the projective representative, may differ)."""
+def _b3_limbs(ff, b3, device):
+    return torch.as_tensor(ff.encode(list(b3) if is_fp2(ff) else b3),
+                           device=device)
+
+
+def bucket_msm_plain(ff, b3, x, y, inf, digits, c: int = C_BITS):
+    """Plain version of bucket_msm over int64 limbs: the same bucket sums
+    as group elements (the order of the additions, and so the projective
+    representative, may differ)."""
     W = digits.shape[0]
-    entries, seg_start, seg_len, seg_off = group_pairs(digits, inf)
+    entries, seg_start, seg_len, seg_off = group_pairs(digits, inf, c=c)
     dev = x.device
     X, Y = _limbs(ff, x), _limbs(ff, y)
-    b3l = torch.as_tensor(ff.encode(list(b3) if is_fp2(ff) else b3),
-                          device=dev)
-    nb = W * BUCKETS
+    b3l = _b3_limbs(ff, b3, dev)
+    nb = W << (c - 1)
     seg_start, seg_len = seg_start.long(), seg_len.long()
 
     def pairs(pos):
@@ -161,43 +194,286 @@ def bucket_msm_plain(ff, b3, x, y, inf, digits):
     return tuple(_words(ff, a) for a in out)
 
 
+# ---------------------------------------------------------------------------
+# K4 on the card: grouping (count, offsets, scatter), pass 1, pass 2
+# ---------------------------------------------------------------------------
+
+class Groups(NamedTuple):
+    """K4's grouping of the (point, digit) pairs: the pairs of bucket b
+    are entries[starts[b] : starts[b] + counts[b]]; its pass-1 segments
+    are seg_off[b] .. seg_off[b+1] (at most SEG pairs each). Sized
+    without a host sync: entries holds W*n slots, and nseg_max bounds
+    the number of segments."""
+    entries: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    seg_off: torch.Tensor
+    nseg_max: int
+    n: int
+    W: int
+    c: int
+
+
 @functools.lru_cache(maxsize=None)
-def _fn():
-    return cuda.bind("bucket_msm", "gt_bucket_msm", 12,
-                     [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p])
+def _k4(fn: str):
+    nptr, rest = {
+        "gt_bucket_count": (3, [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int]),
+        "gt_bucket_scatter": (4, [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int]),
+        "gt_bucket_acc": (9, [ctypes.c_int, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p]),
+        "gt_bucket_segfold": (8, [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p]),
+    }[fn]
+    return cuda.bind("bucket_msm", fn, nptr, rest)
 
 
-def bucket_msm(ff, b3, x, y, inf, digits):
-    """Bucket sums of a signed-digit MSM.
+def _offsets(per_bucket: torch.Tensor, seg: int) -> torch.Tensor:
+    """(nb,) item counts -> (nb + 1,) int32 offsets of their segments of
+    at most `seg` items."""
+    nseg = (per_bucket + (seg - 1)) // seg
+    return torch.cat([nseg.new_zeros(1),
+                      torch.cumsum(nseg, 0, dtype=torch.int32)])
 
-    x, y: (n, Lw) words (Lw = 8 for G1, 16 for flat G2 rows), affine,
-    Montgomery; inf: (n,) bool; digits: (W, n) int32 signed digits.
-    Returns (X, Y, Z), each (W*128, Lw) canonical words: entry
-    w*128 + j is the sum over points with |digit_w| = j + 1."""
+
+def bucket_group(digits: torch.Tensor, inf: torch.Tensor, c: int) -> Groups:
+    """K4's grouping on the card: a count kernel, the offsets (cumsum),
+    and a scatter kernel that puts every pair in its bucket's slots (a
+    counting sort; the order inside a bucket is not fixed)."""
     W, n = digits.shape
-    if x.device.type == "cpu":
-        return bucket_msm_plain(ff, b3, x, y, inf, digits)
+    digits = digits.contiguous()
+    inf = inf.contiguous().view(torch.uint8)
+    if digits.dtype != torch.int32 or inf.shape != (n,):
+        raise ValueError("bucket_group: expected (W, n) int32 digits and "
+                         "(n,) inf")
+    B, dev = 1 << (c - 1), digits.device
+    nb = W * B
+    counts = torch.zeros(nb, dtype=torch.int32, device=dev)
+    cuda.check(_k4("gt_bucket_count")(
+        digits.data_ptr(), inf.data_ptr(), counts.data_ptr(), n, W, B,
+        cuda.stream(digits)), "bucket_msm count")
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    cursor = starts.clone()
+    entries = torch.empty(max(W * n, 1), dtype=torch.int32, device=dev)
+    cuda.check(_k4("gt_bucket_scatter")(
+        digits.data_ptr(), inf.data_ptr(), cursor.data_ptr(),
+        entries.data_ptr(), n, W, B, cuda.stream(digits)),
+        "bucket_msm scatter")
+    return Groups(entries, starts, counts, _offsets(counts, SEG),
+                  -(-W * n // SEG) + nb, n, W, c)
+
+
+def _empty_points(m: int, Lw: int, device):
+    return tuple(torch.empty((max(m, 1), Lw), dtype=torch.int32,
+                             device=device) for _ in range(3))
+
+
+def bucket_acc(ff, b3, x, y, grp: Groups):
+    """K4 pass 1: one thread per segment sums its (at most SEG) points
+    with the complete mixed add. Returns the partial sums, lazy."""
     consts, b3w = kernel_consts(ff, b3)
     Lw = _lw(ff)
-    x = cuda.dev_words(x, "bucket_msm x", (n, Lw))
-    y = cuda.dev_words(y, "bucket_msm y", (n, Lw))
-    entries, seg_start, seg_len, seg_off = group_pairs(digits, inf)
-    nseg, nb = seg_start.numel(), W * BUCKETS
-    part = tuple(torch.empty((max(nseg, 1), Lw), dtype=torch.int32,
-                             device=x.device) for _ in range(3))
-    out = tuple(torch.empty((nb, Lw), dtype=torch.int32, device=x.device)
-                for _ in range(3))
-    ptrs = (x, y, entries, seg_start, seg_len) + part + (seg_off,) + out
-    rc = _fn()(*(a.data_ptr() for a in ptrs), nseg, nb, int(is_fp2(ff)),
-               consts.ctypes.data, b3w.ctypes.data, cuda.stream(x))
-    cuda.check(rc, "bucket_msm")
+    part = _empty_points(grp.nseg_max, Lw, x.device)
+    nb = grp.W << (grp.c - 1)
+    ptrs = (x, y, grp.entries, grp.starts, grp.counts, grp.seg_off) + part
+    cuda.check(_k4("gt_bucket_acc")(
+        *(a.data_ptr() for a in ptrs), nb, SEG, grp.nseg_max,
+        int(is_fp2(ff)), consts.ctypes.data, b3w.ctypes.data,
+        cuda.stream(x)), "bucket_msm pass 1")
+    return part
+
+
+def bucket_fold(ff, b3, grp: Groups, part):
+    """K4 pass 2: the partials of each bucket, FOLD at a time, level by
+    level until each bucket has at most FOLD (a skewed bucket, with
+    many points on one digit, takes more levels), then at the last level
+    one thread per bucket adds the rest. Returns (W*B, Lw) canonical
+    bucket sums."""
+    consts, b3w = kernel_consts(ff, b3)
+    Lw, dev = _lw(ff), part[0].device
+    nb = grp.W << (grp.c - 1)
+    off, bound = grp.seg_off, grp.nseg_max
+    most = -(-grp.n // SEG)           # segments of one bucket, at most
+    st = cuda.stream(part[0])
+    fp2 = int(is_fp2(ff))
+
+    def level(part, off, off2, bound, last):
+        out = _empty_points(bound, Lw, dev)
+        cuda.check(_k4("gt_bucket_segfold")(
+            *(a.data_ptr() for a in part + (off, off2) + out), nb, FOLD,
+            bound, fp2, last, consts.ctypes.data, b3w.ctypes.data, st),
+            "bucket_msm pass 2")
+        return out
+
+    while most > FOLD:
+        off2 = _offsets(off[1:] - off[:-1], FOLD)
+        bound = -(-bound // FOLD) + nb
+        part = level(part, off, off2, bound, 0)
+        off, most = off2, -(-most // FOLD)
+    return level(part, off, torch.arange(nb + 1, dtype=torch.int32,
+                                         device=dev), nb, 1)
+
+
+def bucket_msm(ff, b3, x, y, inf, digits, c: int = C_BITS):
+    """Bucket sums of a signed-digit MSM at window width c.
+
+    x, y: (n, Lw) words (Lw = 8 for G1, 16 for flat G2 rows), affine,
+    Montgomery; inf: (n,) bool; digits: (W, n) int32 signed digits,
+    |d| <= 2^(c-1). Returns (X, Y, Z), each (W*B, Lw) canonical words,
+    B = 2^(c-1): entry w*B + j is the sum over points with
+    |digit_w| = j + 1."""
+    if x.device.type == "cpu":
+        return bucket_msm_plain(ff, b3, x, y, inf, digits, c)
+    out = _bucket_msm_card(ff, b3, x, y, inf, digits, c)
     bucket_msm.launches += 1
     return out
 
 
+def _bucket_msm_card(ff, b3, x, y, inf, digits, c):
+    W, n = digits.shape
+    Lw = _lw(ff)
+    x = cuda.dev_words(x, "bucket_msm x", (n, Lw))
+    y = cuda.dev_words(y, "bucket_msm y", (n, Lw))
+    if not 2 <= c <= 16:
+        raise ValueError(f"bucket_msm: window width {c} not in 2..16")
+    grp = bucket_group(digits, inf, c)
+    return bucket_fold(ff, b3, grp, bucket_acc(ff, b3, x, y, grp))
+
+
 bucket_msm.launches = 0
 
+
+def digit_count(nbits: int, c: int) -> int:
+    """W: the windows of signed_digits at width c."""
+    W0 = -(-nbits // c)
+    return W0 + (1 if (1 << (nbits - (W0 - 1) * c)) >= (1 << (c - 1)) else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _digits_fn():
+    return cuda.bind("bucket_msm", "gt_bucket_digits", 2,
+                     [ctypes.c_longlong] + [ctypes.c_int] * 3)
+
+
+def bucket_digits(words: torch.Tensor, nbits: int, c: int):
+    """Signed c-bit digits of plain scalars: (n, 8) int32 words -> (W, n)
+    int32, the digits of signed_digits (its plain version) on their
+    limbs; on the card, one kernel of K4's source."""
+    if words.device.type == "cpu":
+        return signed_digits(scalar_limbs(words), nbits, c)
+    out = _digits_card(words, nbits, c)
+    bucket_digits.launches += 1
+    return out
+
+
+def _digits_card(words, nbits, c):
+    n = words.shape[0]
+    if not 2 <= c <= 16 or nbits > 32 * 8:
+        raise ValueError(f"bucket_digits: c = {c}, nbits = {nbits}")
+    words = cuda.dev_words(words, "bucket_digits scalars", (n, 8))
+    W = digit_count(nbits, c)
+    out = torch.empty((W, n), dtype=torch.int32, device=words.device)
+    cuda.check(_digits_fn()(words.data_ptr(), out.data_ptr(), n, c,
+                            -(-nbits // c), W, cuda.stream(words)),
+               "bucket_digits")
+    return out
+
+
+bucket_digits.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the epilogue, bucket sums -> the MSM's point
+# ---------------------------------------------------------------------------
+
+def reduce_geometry(c: int):
+    """(L, T, nblk) of K9 at width c: each thread runs L buckets, a block
+    has T threads, a window nblk blocks (L * T * nblk = 2^(c-1)). Short
+    chunks keep the chain before Horner short (2 L adds, then a lift of
+    c - 1 bits); the Horner chain itself, ~c W steps, is the floor."""
+    B = 1 << (c - 1)
+    L = min(max(B // 512, 1), 32)
+    T = min(128, B // L)
+    return L, T, B // (L * T)
+
+
+def bucket_reduce_plain(ff, b3, P, W: int, c: int):
+    """Plain version of bucket_reduce, the reference's epilogue
+    (bucket_kernel.py:372-404): per window, suffix sums of the buckets
+    twice (the second's first entry is sum_j (j+1) P_j), then Horner over
+    the windows from the top. The same point as the kernel as a group
+    element."""
+    B = 1 << (c - 1)
+    b3l = _b3_limbs(ff, b3, P[0].device)
+    Q = tuple(_limbs(ff, a) for a in P)
+    elem = Q[0].shape[1:]
+
+    def add(f, S, T):                   # flat (N, limbs of an element)
+        return tuple(a.reshape(a.shape[0], -1) for a in proj_add_formula(
+            f, tuple(a.reshape((-1,) + elem) for a in S),
+            tuple(a.reshape((-1,) + elem) for a in T), b3l))
+
+    Q = tuple(a.reshape(W, B, -1) for a in Q)
+    tot = _suffix_sums(ff, _suffix_sums(ff, Q, B, 1, add), B, 1, add)
+    tot = tuple(a[:, 0].reshape((W,) + elem) for a in tot)
+    R = tuple(a[W - 1:W] for a in tot)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            R = proj_dbl_formula(ff, R, b3l)
+        R = proj_add_formula(ff, R, tuple(a[w:w + 1] for a in tot), b3l)
+    return tuple(_words(ff, a) for a in R)
+
+
+@functools.lru_cache(maxsize=None)
+def _k9():
+    return cuda.bind("bucket_reduce", "gt_bucket_reduce", 10,
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p,
+                                           ctypes.c_void_p])
+
+
+def bucket_reduce(ff, b3, P, W: int, c: int):
+    """K9: the MSM's point from its bucket sums, in one launch.
+
+    P: (X, Y, Z), each (W*B, Lw) words < 2p, B = 2^(c-1), entry w*B + j
+    the sum of window w's points with |digit| = j + 1. Returns the
+    projective point sum_w 2^(c w) sum_j (j+1) P_{w,j} as (1, Lw)
+    canonical words."""
+    if not 2 <= c <= 16:
+        raise ValueError(f"bucket_reduce: window width {c} not in 2..16")
+    if P[0].device.type == "cpu":
+        return bucket_reduce_plain(ff, b3, P, W, c)
+    out = _bucket_reduce_card(ff, b3, P, W, c)
+    bucket_reduce.launches += 1
+    return out
+
+
+def _bucket_reduce_card(ff, b3, P, W, c):
+    Lw = _lw(ff)
+    P = tuple(cuda.dev_words(a, "bucket_reduce P", (W << (c - 1), Lw))
+              for a in P)
+    L, T, nblk = reduce_geometry(c)
+    consts, b3w = kernel_consts(ff, b3)
+    dev = P[0].device
+    part = _empty_points(W * nblk, Lw, dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = _empty_points(1, Lw, dev)
+    ptrs = P + part + (counter,) + out
+    cuda.check(_k9()(*(a.data_ptr() for a in ptrs), W, c, L, T, nblk,
+                     int(is_fp2(ff)), consts.ctypes.data, b3w.ctypes.data,
+                     cuda.stream(P[0])), "bucket_reduce")
+    return out
+
+
+bucket_reduce.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the MSM
+# ---------------------------------------------------------------------------
 
 def _flat_points(ff, points):
     x, y, inf = points
@@ -213,29 +489,13 @@ def _b3(ff):
     return b3
 
 
-def _msm_device(ff, points, digits, W: int):
-    """One bucket MSM: K4, then the K3 epilogue. Returns a projective
-    point of (1, Lw) canonical words."""
+def _msm_device(ff, points, digits, W: int, c: int):
+    """One bucket MSM: K4, then K9. Returns a projective point of (1, Lw)
+    canonical words."""
     b3 = _b3(ff)
     x, y, inf = _flat_points(ff, points)
-    Lw = x.shape[1]
-    dev = x.device
-    P = tuple(a.reshape(W, BUCKETS, Lw)
-              for a in bucket_msm(ff, b3, x, y, inf, digits))
-    ident = tuple(_words(ff, a) for a in _identity(ff, (1,), dev))
-
-    def add(f, S, Q):
-        return proj_add(f, b3, S, Q)
-
-    suf = _suffix_sums(ff, P, BUCKETS, 1, add)
-    tot = _suffix_sums(ff, suf, BUCKETS, 1, add)
-    tot = tuple(a[:, 0] for a in tot)                   # (W, Lw)
-    R = ident
-    for i in range(W):
-        for _ in range(C_BITS):
-            R = proj_double(ff, b3, R)
-        R = proj_add(ff, b3, R, tuple(a[W - 1 - i][None] for a in tot))
-    return R
+    P = bucket_msm(ff, b3, x, y, inf, digits, c)
+    return bucket_reduce(ff, b3, P, W, c)
 
 
 def msm_proj(ff, points, scalars, nbits: int, chunk: int | None = None):
@@ -249,10 +509,10 @@ def msm_proj(ff, points, scalars, nbits: int, chunk: int | None = None):
     acc = None
     for off in range(0, n, chunk):
         end = min(off + chunk, n)
-        digits = signed_digits(scalar_limbs(scalars[off:end]), nbits,
-                               C_BITS)
+        c = window_bits(end - off, x.device)
+        digits = bucket_digits(scalars[off:end], nbits, c)
         part = _msm_device(ff, (x[off:end], y[off:end], inf[off:end]),
-                           digits, digits.shape[0])
+                           digits, digits.shape[0], c)
         acc = part if acc is None else proj_add(ff, _b3(ff), acc, part)
     return acc
 

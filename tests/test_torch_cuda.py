@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8 against their plain PyTorch versions, and the
+"""The CUDA kernels K1-K9 against their plain PyTorch versions, and the
 scan-path MSM against the bucket path, on the card. Every test here
 needs an NVIDIA GPU and skips without one.
 
@@ -7,9 +7,10 @@ is not installed (tests/conftest.py imports jax, hence --noconftest):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-Tolerance: bit-exact for K1-K3 and K5-K8 (canonical outputs are fixed
-functions of the inputs); equal as group elements for K4 and for the two
-MSM paths (the order of additions differs, so the representatives do)."""
+Tolerance: bit-exact for K1-K3, K5-K8 and K4's digit kernel (canonical
+outputs are fixed functions of the inputs); equal as group elements for
+K4, K9 and the two MSM paths (the order of additions differs, so the
+representatives do)."""
 
 import random
 
@@ -26,9 +27,10 @@ from gnark_tpu_torch.ec.proj_ec import (_limbs, proj_add, proj_add_plain,
                                         proj_double, proj_double_plain)
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
-from gnark_tpu_torch.msm.bucket import (bucket_msm, bucket_msm_plain,
-                                        curve_b3, curve_b3_g2,
-                                        signed_digits)
+from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
+                                        bucket_msm_plain, bucket_reduce,
+                                        bucket_reduce_plain, curve_b3,
+                                        curve_b3_g2, signed_digits)
 from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul_affine
 from gnark_tpu_torch.msm.pippenger import msm_raw, scalar_limbs
 from gnark_tpu_torch.ntt import Domain
@@ -129,6 +131,58 @@ def test_bucket_msm(dev, g2):
     assert torch.equal(ff.is_zero(Z1), ff.is_zero(Z2))
     assert torch.equal(ff.mul(X1, Z2), ff.mul(X2, Z1))
     assert torch.equal(ff.mul(Y1, Z2), ff.mul(Y2, Z1))
+
+
+def _proj_equal(ff, A, B):
+    X1, Y1, Z1 = (_limbs(ff, a) for a in A)
+    X2, Y2, Z2 = (_limbs(ff, a) for a in B)
+    return (torch.equal(ff.is_zero(Z1), ff.is_zero(Z2))
+            and torch.equal(ff.mul(X1, Z2), ff.mul(X2, Z1))
+            and torch.equal(ff.mul(Y1, Z2), ff.mul(Y2, Z1)))
+
+
+def test_bucket_digits(dev):
+    f = get_ff(CURVE.fr.name)
+    rng = random.Random(6)
+    ks = [rng.randrange(CURVE.fr.modulus) for _ in range(997)] + \
+        [0, 1, CURVE.fr.modulus - 1]
+    sc = torch.as_tensor(f.encode_words(ks, mont=False), device=dev)
+    for c in range(2, 17):
+        assert torch.equal(bucket_digits(sc, CURVE.fr.bits, c),
+                           signed_digits(scalar_limbs(sc), CURVE.fr.bits, c))
+
+
+@pytest.mark.parametrize("g2", [False, True])
+@pytest.mark.parametrize("c", [5, 13, 16])
+def test_bucket_msm_width_and_reduce(dev, g2, c):
+    """K4 at width c against its plain version; K9 on its bucket sums
+    against its plain version and the host's MSM."""
+    ff, hf, b3, gen = _group(g2)
+    rng = random.Random(c)
+    base = [gen]
+    for _ in range(31):
+        base.append(host.ec_add(hf, base[-1], gen))
+    n = 700
+    pts = [base[rng.randrange(32)] for _ in range(n)]
+    x, y = (torch.as_tensor(ff.encode_words([p[i] for p in pts]),
+                            device=dev).reshape(n, -1) for i in (0, 1))
+    inf = torch.zeros(n, dtype=torch.bool, device=dev)
+    inf[3:6] = True
+    ks = [rng.randrange(CURVE.fr.modulus) for _ in range(n)]
+    ks[7:9] = [0, 0]
+    ks[20:60] = [2] * 40                          # skew: one bucket
+    sc = torch.as_tensor(get_ff(CURVE.fr.name).encode_words(ks, mont=False),
+                         device=dev)
+    digits = bucket_digits(sc, CURVE.fr.bits, c)
+    got = bucket_msm(ff, b3, x, y, inf, digits, c)
+    assert _proj_equal(ff, got, bucket_msm_plain(ff, b3, x, y, inf, digits,
+                                                 c))
+    W = digits.shape[0]
+    R = bucket_reduce(ff, b3, got, W, c)
+    assert _proj_equal(ff, R, bucket_reduce_plain(ff, b3, got, W, c))
+    live = [(p, k) for i, (p, k) in enumerate(zip(pts, ks)) if not 3 <= i < 6]
+    assert _to_affine_host(ff, hf, "proj", R) == host.ec_msm(
+        hf, [p for p, _ in live], [k for _, k in live])
 
 
 def test_butterfly_and_radix2(dev):
@@ -238,7 +292,7 @@ def test_jac_add(dev, g2):
 @pytest.mark.parametrize("g2", [False, True])
 def test_scan_msm_matches_bucket(dev, g2, monkeypatch):
     """A 2^12 MSM (infinity points, zero scalars, duplicates) on the scan
-    path (K6, K8, K7) and on the bucket path (K4, K3): one group
+    path (K6, K8, K7) and on the bucket path (K4, K9): one group
     element."""
     ff, hf, _, gen = _group(g2)
     rng = random.Random(9)
