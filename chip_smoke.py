@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: the seven CUDA kernel libraries (one nvcc each, in
+  2. build: the eight CUDA kernel libraries (one nvcc each, in
      parallel) and the native witness solver;
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, K2 row_fft (and whole four-step transforms), K3
@@ -13,8 +13,10 @@ Phases (any failure exits non-zero):
      bucket_reduce (on K4's sums, all buckets empty, one bucket a
      window, full buckets with equal neighbours and lazy inputs), in G1
      and G2 with edge cases; K5 butterfly (every stage of 2^13, and
-     whole radix-2 transforms), K6 jac_add_mixed / K7 jac_double / K8
-     jac_add in G1 and G2 with edge cases;
+     whole radix-2 transforms), K6 jac_add_mixed / K7 jac_double (G2
+     on lane pairs) / K8 jac_add in G1 and G2 with edge cases, and the
+     fused fixed-base ladder at 254 bits on the scalars that take the
+     complete add's branches (0, 1, r - 1, r, r + 2);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
@@ -24,9 +26,10 @@ Phases (any failure exits non-zero):
      scan-path MSM: K6, K8, K7, no K4 or K9): the same proof, and the
      five MSMs again against their known values;
   5. the setup -> prove -> verify path, in three configurations:
-     g16_20 (Setup at 2^20: sampled key points against host scalar
-     multiplications of the toxic waste, one proof that verifies, one
-     tampered proof that does not), merkle_d12 (the Merkle membership
+     g16_20 (Setup at 2^20: one ladder launch a group and no K6 or K7;
+     sampled key points against host scalar multiplications of the
+     toxic waste, one proof that verifies, one tampered proof that does
+     not), merkle_d12 (the Merkle membership
      example at depth 12, N = 2^13, on the radix-2 plan: setup, three
      proves, verify; a wrong root does not verify) and rc_20 (2^17 secret
      64-bit values range-checked through std/rangecheck, one BSB22
@@ -36,8 +39,11 @@ Phases (any failure exits non-zero):
   6. every kernel again at the shapes its path gives it, held against
      its plain version on the same inputs (K4 and K9 on the g16_20 setup
      key's columns, 2^20 distinct points, with K4's grouping and passes
-     timed apart); its launches during its path, its time, its bound and
-     its plain version's time, as one JSON line; the whole bucket MSM at
+     timed apart; the ladder on the g16_20 setup's scalars, bit-exact
+     against its plain version on the first 1,024 and against the
+     per-bit K7 + K6 sequence on all, both timed); its
+     launches during its path, its time, its bound and its plain
+     version's time, as one JSON line; the whole bucket MSM at
      each window width of SWEEP_C on those columns and their first 2^16
      and 2^13 points (one group element at every width); then the card's
      name and power limit, and the device as the last line.
@@ -66,12 +72,14 @@ MUL_OPS = {  # 32-bit multiplies per operation (mul.lo + mul.hi per word pair)
     "proj_add2": 8 * 792 + 3 * 1296,    # G2: Fp2 product = 3 Fp products
     "proj_madd2": 7 * 792 + 3 * 1296,
     "proj_dbl2": 9 * 792,
-    "jac_madd": 11 * 264,               # madd-2007-bl: 7M + 4S
-    "jac_dbl": 7 * 264,                 # dbl-2009-l: 2M + 5S
-    "jac_madd2": 11 * 792,
-    "jac_dbl2": 7 * 792,
-    "jac_add": 16 * 264,                # add-2007-bl: 11M + 5S
-    "jac_add2": 16 * 792,
+    # a squaring at its least cost: G1 each cross product once (36 word
+    # products, 64 + 8 to reduce: 208); G2 (a0 + a1)(a0 - a1), 2 a0 a1
+    "jac_madd": 7 * 264 + 4 * 208,      # madd-2007-bl: 7M + 4S
+    "jac_dbl": 2 * 264 + 5 * 208,       # dbl-2009-l: 2M + 5S
+    "jac_madd2": 7 * 792 + 4 * 528,
+    "jac_dbl2": 2 * 792 + 5 * 528,
+    "jac_add": 11 * 264 + 5 * 208,      # add-2007-bl: 11M + 5S
+    "jac_add2": 11 * 792 + 5 * 528,
 }
 HBM_BYTES_PER_S = 3.35e12
 DEV = "cuda"          # the card; a rehearsal may set "cpu"
@@ -409,10 +417,12 @@ def all_wrappers():
     from gnark_tpu_torch.ff.mont_mul import mont_mul
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_reduce)
+    from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul
     from gnark_tpu_torch.ntt.fourstep import row_fft
     from gnark_tpu_torch.ntt.radix2 import butterfly
     return (mont_mul, row_fft, proj_add, proj_double, bucket_msm, butterfly,
-            jac_add_mixed, jac_double, jac_add, bucket_reduce, bucket_digits)
+            jac_add_mixed, jac_double, jac_add, bucket_reduce, bucket_digits,
+            batch_scalar_mul)
 
 
 def scan_prove(what, fn):
@@ -519,8 +529,8 @@ def phase_kernels_jac_ntt(rng, res):
                 check(jac_to_host(ff, hf, got, i) == want_host(i),
                       f"{name} {tag} vs host at {i}")
         log(f"K6 jac_add_mixed (per-row and broadcast operand) / K7 "
-            f"jac_double {tag}: ({m}, {Pw[0].shape[1]}) bit-exact, "
-            f"host-checked")
+            f"jac_double {tag}{' on lane pairs' if g2 else ''}: "
+            f"({m}, {Pw[0].shape[1]}) bit-exact, host-checked")
 
         # K8: P + Q with P == Q (another Z), P == -Q, either or both at
         # infinity, coordinates of both in [p, 2p), and random pairs
@@ -546,6 +556,48 @@ def phase_kernels_jac_ntt(rng, res):
             f"{cuda_ms(lambda: jac_add(ff, Pw, Qw)):.4f} ms")
     for k, v in errs.items():
         res[k]["max_abs_err"] = v
+
+
+LADDER_ROWS = 1024
+
+
+def phase_kernels_ladder(rng, res):
+    """The fused ladder against its plain version (the per-bit plain K7
+    + K6) at 254 bits on 1,029 scalars in G1 and G2, bit-exact: 0, 1,
+    r - 1, r (the last add is P + (-P)) and r + 2 (P + P, the doubling
+    branch), written as they are, then random ones; the edge rows
+    against the host."""
+    import torch
+    from gnark_tpu_torch.ec import curves, host
+    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
+                                                batch_scalar_mul_plain)
+    c = curves.CURVES["bn254"]
+    r, nbits = c.fr.modulus, c.fr.bits
+    ks = [0, 1, r - 1, r, r + 2] + [rng.randrange(r)
+                                    for _ in range(LADDER_ROWS)]
+    sc = raw_words(ks)
+    err = 0
+    for g2 in (False, True):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        hf = c.host_g2_field if g2 else c.host_fp
+        gen = c.g2 if g2 else c.g1
+        base = affine_words(ff, [gen])
+        got = batch_scalar_mul(ff, base, nbits, sc)
+        pms, want = timed(lambda: batch_scalar_mul_plain(ff, base, nbits,
+                                                         sc), 1, warm=False)
+        check(all(torch.equal(u, v) for u, v in zip(got, want)),
+              f"ladder {'G2' if g2 else 'G1'}")
+        err = max([err] + [max_abs(u, v) for u, v in zip(got, want)])
+        for i, k in enumerate(ks[:5]):
+            check(jac_to_host(ff, hf, got, i) == host.ec_mul(hf, gen, k % r),
+                  f"ladder {'G2' if g2 else 'G1'} vs host at scalar {i}")
+        log(f"ladder {'G2 on lane pairs' if g2 else 'G1'}: {len(ks)} "
+            f"scalars at {nbits} bits (0, 1, r - 1, r, r + 2, random) "
+            f"bit-exact against the per-bit plain K7 + K6 "
+            f"({pms:.1f} ms), host-checked")
+    res["batch_scalar_mul"]["max_abs_err"] = err
 
 
 def jac_to_host(ff, hf, P, i):
@@ -695,7 +747,8 @@ def phase_scan(res, cs, pk, want):
     log(f"g16_20 scan-path prove (s): {fmt_times(tm)}")
     check(proof == want, "g16_20: the scan-path proof differs from the "
           "bucket-path proof under the same rng")
-    res["jac_add"]["launches"] = launches["jac_add"]
+    for k in ("jac_add", "jac_add_mixed", "jac_double"):
+        res[k]["launches"] = launches[k]
     log("g16_20 scan-path proof == bucket-path proof")
     t = time.perf_counter()
     try:
@@ -716,12 +769,13 @@ def fmt_times(tm):
 
 
 def timed_setup(cs, what):
-    """groth16.setup on the card, timed by phase; K6 and K7 must launch
-    once per scalar bit in each of the two ladders."""
+    """groth16.setup on the card, timed by phase; the ladder kernel must
+    launch once for each of the two groups, and K6 and K7 not at all."""
     from gnark_tpu_torch.backend import groth16
     from gnark_tpu_torch.ec.jac_ec import jac_add_mixed, jac_double
     from gnark_tpu_torch.ff.mont_mul import mont_mul
-    wrappers = (jac_add_mixed, jac_double, mont_mul)
+    from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul
+    wrappers = (batch_scalar_mul, jac_add_mixed, jac_double, mont_mul)
     for wr in wrappers:
         wr.launches = 0
     tm = {}
@@ -731,11 +785,12 @@ def timed_setup(cs, what):
     tm["total"] = time.perf_counter() - t
     launches = {wr.__name__: wr.launches for wr in wrappers}
     log(f"{what} setup (s): {fmt_times(tm)}; launches {json.dumps(launches)}")
-    bits = pk.curve.fr.bits
+    check(launches["batch_scalar_mul"] == 2,
+          f"{what} setup launched the ladder {launches['batch_scalar_mul']} "
+          f"times, not once a group")
     for k in ("jac_add_mixed", "jac_double"):
-        check(launches[k] == 2 * bits,
-              f"{what} setup launched {k} {launches[k]} times, not "
-              f"2 x {bits}")
+        check(launches[k] == 0,
+              f"{what} setup launched {k} {launches[k]} times, not 0")
     return pk, vk, launches
 
 
@@ -778,18 +833,21 @@ def check_key(cs, pk, vk, rng, k=64):
     for i, pt in enumerate(vk.g1_k):
         check(pt == host.ec_mul(f1, curve.g1, s["g1"][o_vk + i]),
               f"vk.g1_k[{i}]")
+    return s
 
 
 def phase_setup(res, cs, rng):
     """g16_20: Setup at 2^20, its key against host scalar
     multiplications, one proof that verifies and one tampered that does
-    not."""
+    not. Returns the setup's G1 and G2 scalars as words on the card (for
+    phase 6's ladder) and the key's A and B columns."""
     from gnark_tpu_torch.backend import groth16
+    import torch
+    from gnark_tpu_torch.ff import get_ff
     pk, vk, launches = timed_setup(cs, "g16_20")
-    for k in ("jac_add_mixed", "jac_double"):
-        res[k]["launches"] = launches[k]
+    res["batch_scalar_mul"]["launches"] = launches["batch_scalar_mul"]
     t = time.perf_counter()
-    check_key(cs, pk, vk, rng)
+    s = check_key(cs, pk, vk, rng)
     log(f"g16_20 key: 64 sampled points of each of the five columns, the "
         f"five host points and the vk equal [s] G for the recomputed "
         f"scalars (checked in {time.perf_counter() - t:.1f} s)")
@@ -807,8 +865,10 @@ def phase_setup(res, cs, rng):
     check(not groth16.verify(bad, vk, []),
           "g16_20: verify accepted Ar and Krs of two proofs")
     log("g16_20 verify of Ar from one proof and Krs from another: False")
-    return (3 + 3 * cs.nb_wires + pk.domain_n, 3 + cs.nb_wires), \
-        (pk.g1_a, pk.g2_b)
+    fr = get_ff(pk.curve.fr.name)
+    ladder_sc = tuple(torch.as_tensor(fr.encode_words(s[g], mont=False),
+                                      device=DEV) for g in ("g1", "g2"))
+    return ladder_sc, (pk.g1_a, pk.g2_b)
 
 
 def phase_merkle(res):
@@ -924,29 +984,7 @@ def sync():
 # phase 6: kernels at their paths' shapes
 # ---------------------------------------------------------------------------
 
-def phase_times(res, rng, n_pts, ladder_sizes, key_cols, n=1 << 20):
-    """Each kernel at the shapes its path gives it (a domain of n; for K4
-    and K9 the g16_20 setup key's A (G1) and B (G2) columns, 2^20 + 2049
-    distinct points, with random scalars, at the main path's width and at
-    c = 8, the grouping and the two passes also timed apart; a stage of
-    2^13 for K5, the G1 and G2 setup ladders' widths for K6 and K7, the
-    scan path's widest group-fold step for K8): timed, and held against
-    its plain version on the same inputs; a disagreement fails the
-    run."""
-    import torch
-    from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.fp2 import get_ff2
-    from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
-                                            proj_double, proj_double_plain)
-    from gnark_tpu_torch.ff import get_ff
-    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
-    from gnark_tpu_torch.msm.bucket import curve_b3
-    from gnark_tpu_torch.ntt.fourstep import (dif_stage_tw, row_fft,
-                                              row_fft_plain)
-    rate = int_mul_rate()
-    fr = get_ff("bn254_fr")
-    c = curves.CURVES["bn254"]
-
+def make_put(res, rate):
     def put(name, sfx, shape, ms, plain_ms, nbytes, nmul, err,
             plain_shape=None):
         """Record one shape of a kernel; keys of a second shape carry
@@ -963,6 +1001,33 @@ def phase_times(res, rng, n_pts, ladder_sizes, key_cols, n=1 << 20):
             r["plain_shape" + sfx] = plain_shape
         log(f"{name} {shape}: {ms:.4f} ms, plain {plain_shape or shape} "
             f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by}), agree")
+    return put
+
+
+def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
+    """Each kernel at the shapes its path gives it (a domain of n; for K4
+    and K9 the g16_20 setup key's A (G1) and B (G2) columns, 2^20 + 2049
+    distinct points, with random scalars, at the main path's width and at
+    c = 8, the grouping and the two passes also timed apart; a stage of
+    2^13 for K5, the G1 and G2 setup ladders' widths for K6 and K7, the
+    g16_20 setup's scalars for the ladder, the scan path's widest
+    group-fold step for K8): timed, and held against its plain version
+    on the same inputs (the ladder also against the per-bit K7 + K6
+    sequence on the card); a disagreement fails the run."""
+    import torch
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
+                                            proj_double, proj_double_plain)
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
+    from gnark_tpu_torch.msm.bucket import curve_b3
+    from gnark_tpu_torch.ntt.fourstep import (dif_stage_tw, row_fft,
+                                              row_fft_plain)
+    rate = int_mul_rate()
+    put = make_put(res, rate)
+    fr = get_ff("bn254_fr")
+    c = curves.CURVES["bn254"]
 
     a, b = rand_words(fr, n, rng), rand_words(fr, n, rng)
     ms, got = timed(lambda: mont_mul(fr, a, b))
@@ -1016,14 +1081,53 @@ def phase_times(res, rng, n_pts, ladder_sizes, key_cols, n=1 << 20):
     put("butterfly", "", [m, 8], ms, pms, 2 * m * 32 + tw.numel() * 4,
         m // 2 * MUL_OPS["mul"], max_abs(got, want))
 
-    # K6 / K7 at the g16_20 setup ladders' widths; the plain versions on
-    # the first 2^16 points, against the kernels on the same slice
+    times_k6_k7(put, ladder_sc)
+    times_ladder(res, rate, put, ladder_sc)
+    torch.cuda.empty_cache()
+
+    # K8 at the scan path's widest shape: the first step of the group fold
+    # of a wire MSM (n_pts points), W * G/2 * 2^c rows; the plain version
+    # on the first 2^16 rows, against the kernel on the same slice
+    from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_plain
+    from gnark_tpu_torch.msm.pippenger import _pick_params
+    gen_t = torch.Generator(device=DEV).manual_seed(5)
+    n_class = 1 << (n_pts - 1).bit_length()
+    cc, G = _pick_params(n_class, c.fr.bits)
+    wide = -(-c.fr.bits // cc) * (G // 2) << cc
+    for g2 in (False, True):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
+        Lw = 16 if g2 else 8
+        P = tuple(rand_dev_words(wide, Lw, gen_t) for _ in range(6))
+        pn = 1 << 16
+        sl_ = tuple(a[:pn] for a in P)
+        op, sfx = ("2", "_g2") if g2 else ("", "")
+        ms, _ = timed(lambda: jac_add(ff, P[:3], P[3:]))
+        pms, want = timed(lambda: jac_add_plain(ff, sl_[:3], sl_[3:]), 1,
+                          warm=False)
+        got = jac_add(ff, sl_[:3], sl_[3:])
+        put("jac_add", sfx, [wide, Lw], ms, pms, wide * 9 * Lw * 4,
+            wide * MUL_OPS["jac_add" + op],
+            max(max_abs(u, v) for u, v in zip(got, want)),
+            plain_shape=[min(pn, wide), Lw])
+        del P, sl_, got, want
+
+
+def times_k6_k7(put, ladder_sc):
+    """K6 and K7 at the g16_20 setup ladders' widths on random words;
+    the plain versions on the first 2^16 points, against the kernels on
+    the same slice."""
+    import torch
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ec.jac_ec import (jac_add_mixed,
                                            jac_add_mixed_plain, jac_double,
                                            jac_double_plain)
+    from gnark_tpu_torch.ff import get_ff
+    c = curves.CURVES["bn254"]
     gen_t = torch.Generator(device=DEV).manual_seed(5)
-    for g2, npts in ((False, ladder_sizes[0]), (True, ladder_sizes[1])):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
+    for g2, sc in ((False, ladder_sc[0]), (True, ladder_sc[1])):
+        npts = sc.shape[0]
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
         Lw = 16 if g2 else 8
         P = tuple(rand_dev_words(npts, Lw, gen_t) for _ in range(3))
         bx, by = affine_words(ff, [c.g2 if g2 else c.g1])
@@ -1048,30 +1152,93 @@ def phase_times(res, rng, n_pts, ladder_sizes, key_cols, n=1 << 20):
                 plain_shape=[min(pn, npts), Lw])
         del P, sl_, got, want
 
-    # K8 at the scan path's widest shape: the first step of the group fold
-    # of a wire MSM (n_pts points), W * G/2 * 2^c rows; the plain version
-    # on the first 2^16 rows, against the kernel on the same slice
-    from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_plain
-    from gnark_tpu_torch.msm.pippenger import _pick_params
-    n_class = 1 << (n_pts - 1).bit_length()
-    cc, G = _pick_params(n_class, c.fr.bits)
-    wide = -(-c.fr.bits // cc) * (G // 2) << cc
-    for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
-        Lw = 16 if g2 else 8
-        P = tuple(rand_dev_words(wide, Lw, gen_t) for _ in range(6))
-        pn = 1 << 16
-        sl_ = tuple(a[:pn] for a in P)
+
+def table_window(n, nbits):
+    """The window w (1..24) at which a fixed-base table takes the fewest
+    mixed adds for n scalars of nbits bits: the table holds d 2^(w j) B
+    for each of the k = ceil(nbits / w) windows j and each digit d in
+    1..2^w - 1, built once (one add a point); then a scalar takes one
+    table point a nonzero digit, k - 1 adds at most, and no doubling."""
+    return min(range(1, 25), key=lambda w: n * (-(-nbits // w) - 1) +
+               -(-nbits // w) * ((1 << w) - 1))
+
+
+def ladder_work(sc, nbits, w):
+    """What these scalars need, counted on the card: (doublings, adds)
+    of double-and-add over the low nbits bits (a nonzero scalar doubles
+    once for each bit below its top bit and adds once for each set bit
+    below it), and the mixed adds a table at window w takes (one fewer
+    than its nonzero digits)."""
+    import torch
+    w32 = sc.to(torch.int64) & 0xFFFFFFFF
+    n = sc.shape[0]
+    pop = torch.zeros(n, dtype=torch.int64, device=sc.device)
+    top = torch.full_like(pop, -1)
+    digits = torch.zeros(n, -(-nbits // w), dtype=torch.int64,
+                         device=sc.device)
+    for b in range(nbits):
+        bit = (w32[:, b // 32] >> (b % 32)) & 1
+        pop += bit
+        top = torch.where(bit == 1, b, top)
+        digits[:, b // w] |= bit
+    return (int(top.clamp(min=0).sum()), int((pop - 1).clamp(min=0).sum()),
+            int((digits.sum(1) - 1).clamp(min=0).sum()))
+
+
+def times_ladder(res, rate, put, ladder_sc, plain_rows=1024):
+    """The ladder on the g16_20 setup's G1 and G2 scalars, held bit-exact
+    against its plain version on the first plain_rows of them (whose
+    time is the plain time) and against the per-bit K7 + K6 sequence it
+    fuses on all of them (timed beside it). Bound: the least work of the
+    function, a fixed-base [s] B of which Setup keeps the affine point: a
+    table at the best window (table_window), its mixed adds for these
+    scalars' nonzero digits plus one a table point, its bytes written
+    and read once. bound_ms_dbl_add: the doublings and adds that
+    double-and-add needs for these scalars, as the kernel runs it."""
+    import torch
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
+                                                batch_scalar_mul_plain,
+                                                per_bit_ladder)
+    c = curves.CURVES["bn254"]
+    nbits = c.fr.bits
+    r = res["batch_scalar_mul"]
+    for g2, sc in ((False, ladder_sc[0]), (True, ladder_sc[1])):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        base = affine_words(ff, [c.g2 if g2 else c.g1])
+        n, Lw = sc.shape[0], 16 if g2 else 8
         op, sfx = ("2", "_g2") if g2 else ("", "")
-        ms, _ = timed(lambda: jac_add(ff, P[:3], P[3:]))
-        pms, want = timed(lambda: jac_add_plain(ff, sl_[:3], sl_[3:]), 1,
-                          warm=False)
-        got = jac_add(ff, sl_[:3], sl_[3:])
-        put("jac_add", sfx, [wide, Lw], ms, pms, wide * 9 * Lw * 4,
-            wide * MUL_OPS["jac_add" + op],
-            max(max_abs(u, v) for u, v in zip(got, want)),
-            plain_shape=[min(pn, wide), Lw])
-        del P, sl_, got, want
+        ms, got = timed(lambda: batch_scalar_mul(ff, base, nbits, sc), 3)
+        pms, want = timed(lambda: batch_scalar_mul_plain(
+            ff, base, nbits, sc[:plain_rows]), 1, warm=False)
+        err = max(max_abs(u[:plain_rows], v) for u, v in zip(got, want))
+        seq_ms, want = timed(lambda: per_bit_ladder(ff, base, nbits, sc), 1)
+        check(all(torch.equal(u, v) for u, v in zip(got, want)),
+              f"ladder {'G2' if g2 else 'G1'} differs from the per-bit "
+              f"K7 + K6 on the setup's scalars")
+        del got, want
+        w = table_window(n, nbits)
+        tab = -(-nbits // w) * ((1 << w) - 1)
+        dbls, adds, tab_adds = ladder_work(sc, nbits, w)
+        dbl_ops, add_ops = MUL_OPS["jac_dbl" + op], MUL_OPS["jac_madd" + op]
+        put("batch_scalar_mul", sfx, [n, Lw, nbits], ms, pms,
+            n * (32 + 3 * Lw * 4) + 2 * tab * 2 * Lw * 4,
+            (tab_adds + tab) * add_ops, err,
+            plain_shape=[min(plain_rows, n), Lw, nbits])
+        dbl_add = bound_ms(0, dbls * dbl_ops + adds * add_ops, rate)[0]
+        r.update({"per_bit_ms" + sfx: seq_ms, "bound_ms_dbl_add" + sfx: dbl_add,
+                  "work" + sfx: {"table_w": w, "table_points": tab,
+                                 "table_adds": tab_adds, "dbl": dbls,
+                                 "add": adds}})
+        log(f"ladder {'G2' if g2 else 'G1'} on {n} setup scalars: "
+            f"{ms:.3f} ms; the per-bit K7 + K6 sequence {seq_ms:.3f} ms; "
+            f"the same words, and those of the plain version on the first "
+            f"{min(plain_rows, n)}; bound {r['bound_ms' + sfx]:.3f} ms for a "
+            f"table at w = {w} ({tab} points, {tab_adds} adds); "
+            f"double-and-add {dbl_add:.3f} ms ({dbls} doublings, {adds} "
+            f"adds)")
 
 
 def k9_work(W, c):
@@ -1239,6 +1406,12 @@ KERNELS = {
     "bucket_digits": ("gnark_tpu_torch/csrc/bucket_msm.cu",
                       "gnark_tpu/msm/bucket_kernel.py:100 signed_digits "
                       "(XLA, no Pallas kernel), in _msm_bucket_jit:300"),
+    "batch_scalar_mul": ("gnark_tpu_torch/csrc/ladder.cu",
+                         "gnark_tpu/ec/pallas_ec.py:370 jac_double_p and "
+                         ":288 jac_add_mixed_p, fused as "
+                         "gnark_tpu/msm/fixed_base.py:27-52 "
+                         "batch_scalar_mul's fori_loop runs their formulas "
+                         "(XLA, no Pallas kernel)"),
 }
 
 
@@ -1294,6 +1467,7 @@ def main(argv) -> int:
         rng = random.Random(2024)
         phase_kernels(rng, res)
         phase_kernels_jac_ntt(rng, res)
+        phase_kernels_ladder(rng, res)
         if quick:
             log(json.dumps({"kernels": list(res.values())}))
             log(smi)
@@ -1301,11 +1475,11 @@ def main(argv) -> int:
         n_pts, cs, pk, proof = phase_main(res)
         phase_scan(res, cs, pk, proof)
         del pk, proof
-        ladder_sizes, key_cols = phase_setup(res, cs, rng)
+        ladder_sc, key_cols = phase_setup(res, cs, rng)
         del cs
         phase_merkle(res)
         phase_rc20(res)
-        phase_times(res, rng, n_pts, ladder_sizes, key_cols)
+        phase_times(res, rng, n_pts, ladder_sc, key_cols)
         torch.cuda.synchronize()
         log(f"chip_smoke: every phase passed, "
             f"{time.perf_counter() - t_start:.1f} s in all")

@@ -26,8 +26,18 @@ struct Row<Fp2s> {
 
 __device__ __forceinline__ int lane_half() { return threadIdx.x & 1; }
 
+// the two lanes of this thread's pair
+__device__ __forceinline__ unsigned pair_mask() {
+  return 3u << (threadIdx.x & 30);
+}
+
+// b on both lanes of the pair (both lanes must call it)
+__device__ __forceinline__ bool pair_all(bool b) {
+  return __all_sync(pair_mask(), b);
+}
+
 __device__ __forceinline__ Fp partner(const Fp& a) {
-  const unsigned mask = 3u << (threadIdx.x & 30);
+  const unsigned mask = pair_mask();
   Fp r;
 #pragma unroll
   for (int i = 0; i < GT_NW; ++i) r.w[i] = __shfl_xor_sync(mask, a.w[i], 1);
@@ -48,6 +58,17 @@ __device__ __forceinline__ Fp2s mul_lazy(const Fp2s& a, const Fp2s& c,
   Fp ao = partner(a.v), co = partner(c.v);
   Fp2s r;
   r.v = sop2(pick(odd, ao, a.v), c.v, pick(odd, a.v, neg2p(ao, F)), co, F);
+  return r;
+}
+
+// this lane's component of a^2: c0 = (a0 + a1)(a0 - a1), c1 = 2 a0 a1,
+// one product a lane where a * a takes a sum of two
+__device__ __forceinline__ Fp2s sqr_lazy(const Fp2s& a, const FieldC& F) {
+  const bool odd = lane_half();
+  Fp o = partner(a.v);
+  Fp2s r;
+  r.v = mul_lazy(pick(odd, double2p(o, F), add2p(a.v, o, F)),
+                 pick(odd, a.v, sub2p(a.v, o, F)), F);
   return r;
 }
 

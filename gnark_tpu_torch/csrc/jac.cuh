@@ -1,6 +1,6 @@
 // Jacobian formulas for a = 0 curves, (X : Y : Z) ~ (X/Z^2, Y/Z^3),
-// infinity Z == 0, generic over the coordinate field (Fp for G1, Fp2 for
-// the G2 twist).
+// infinity Z == 0, generic over the coordinate field (Fp for G1; for the
+// G2 twist Fp2 on one thread, or Fp2s of fp2s.cuh on a lane pair).
 //
 // Counterparts of gnark_tpu/ec/pallas_ec.py _jac_double_t (EFD
 // dbl-2009-l), _jac_add_mixed_t (EFD madd-2007-bl plus the selects
@@ -8,10 +8,12 @@
 // selects), operation for operation, in the lazy [0, 2p)
 // class: inputs < 2p, outputs < 2p; callers canonicalize at the kernel
 // boundary. The predicates (Z1 == 0, H == 0, r == 0) canonicalize first,
-// so a lazy representative of 0 (p itself) counts as 0.
+// so a lazy representative of 0 (p itself) counts as 0. With Fp2s every
+// predicate holds for the whole pair, so both lanes take the same
+// branches: the shuffles of a product need both.
 #pragma once
 
-#include "mont.cuh"
+#include "fp2s.cuh"
 
 template <class E>
 struct Jac {
@@ -30,6 +32,11 @@ __device__ __forceinline__ bool is_zero_lazy(const Fp2& a, const FieldC& F) {
   return is_zero_lazy(a.c0, F) && is_zero_lazy(a.c1, F);
 }
 
+// both components zero: each lane's flag, ANDed across the pair
+__device__ __forceinline__ bool is_zero_lazy(const Fp2s& a, const FieldC& F) {
+  return pair_all(is_zero_lazy(a.v, F));
+}
+
 template <class E>
 __device__ __forceinline__ void jac_infinity(Jac<E>& r, const FieldC& F) {
   set_one(r.X, F);
@@ -40,14 +47,14 @@ __device__ __forceinline__ void jac_infinity(Jac<E>& r, const FieldC& F) {
 // dbl-2009-l (a = 0): 2M + 5S. Infinity stays infinity (Z3 = 2 Y Z = 0).
 template <class E>
 __device__ __forceinline__ Jac<E> jac_dbl(const Jac<E>& P, const FieldC& F) {
-  E A = mul_lazy(P.X, P.X, F);
-  E B = mul_lazy(P.Y, P.Y, F);
-  E C = mul_lazy(B, B, F);
+  E A = sqr_lazy(P.X, F);
+  E B = sqr_lazy(P.Y, F);
+  E C = sqr_lazy(B, F);
   E t = add2p(P.X, B, F);
-  t = mul_lazy(t, t, F);
+  t = sqr_lazy(t, F);
   E D = double2p(sub2p(sub2p(t, A, F), C, F), F);
   E E3 = add2p(double2p(A, F), A, F);               // 3A
-  E F2 = mul_lazy(E3, E3, F);
+  E F2 = sqr_lazy(E3, F);
   Jac<E> R;
   R.X = sub2p(F2, double2p(D, F), F);
   E C8 = double2p(double2p(double2p(C, F), F), F);  // 8C
@@ -57,7 +64,8 @@ __device__ __forceinline__ Jac<E> jac_dbl(const Jac<E>& P, const FieldC& F) {
 }
 
 // The doubling inside the mixed add runs on a few lanes at most; a call
-// keeps the (large, for Fp2) formula out of the add's basic block.
+// keeps the (large, for Fp2) formula out of the add's basic block. With
+// Fp2s both lanes of a pair call it or neither does.
 template <class E>
 __device__ __noinline__ Jac<E> jac_dbl_call(const Jac<E>& P, const FieldC& F) {
   return jac_dbl(P, F);
@@ -70,21 +78,21 @@ template <class E>
 __device__ __forceinline__ Jac<E> jac_madd(const Jac<E>& P, const E& x2,
                                            const E& y2, bool inf2,
                                            const FieldC& F) {
-  E Z1Z1 = mul_lazy(P.Z, P.Z, F);
+  E Z1Z1 = sqr_lazy(P.Z, F);
   E U2 = mul_lazy(x2, Z1Z1, F);
   E S2 = mul_lazy(mul_lazy(y2, P.Z, F), Z1Z1, F);
   E H = sub2p(U2, P.X, F);
-  E HH = mul_lazy(H, H, F);
+  E HH = sqr_lazy(H, F);
   E I = double2p(double2p(HH, F), F);                // 4HH
   E J = mul_lazy(H, I, F);
   E r = double2p(sub2p(S2, P.Y, F), F);
   E V = mul_lazy(P.X, I, F);
   Jac<E> R;
-  R.X = sub2p(sub2p(mul_lazy(r, r, F), J, F), double2p(V, F), F);
+  R.X = sub2p(sub2p(sqr_lazy(r, F), J, F), double2p(V, F), F);
   R.Y = sub2p(mul_lazy(r, sub2p(V, R.X, F), F),
               double2p(mul_lazy(P.Y, J, F), F), F);
   E zh = add2p(P.Z, H, F);
-  R.Z = sub2p(sub2p(mul_lazy(zh, zh, F), Z1Z1, F), HH, F);
+  R.Z = sub2p(sub2p(sqr_lazy(zh, F), Z1Z1, F), HH, F);
 
   const bool inf1 = is_zero_lazy(P.Z, F);
   if (!inf1 && !inf2 && is_zero_lazy(H, F)) {
@@ -112,8 +120,8 @@ __device__ __forceinline__ Jac<E> jac_madd(const Jac<E>& P, const E& x2,
 template <class E>
 __device__ __forceinline__ Jac<E> jac_add(const Jac<E>& P, const Jac<E>& Q,
                                           const FieldC& F) {
-  E Z1Z1 = mul_lazy(P.Z, P.Z, F);
-  E Z2Z2 = mul_lazy(Q.Z, Q.Z, F);
+  E Z1Z1 = sqr_lazy(P.Z, F);
+  E Z2Z2 = sqr_lazy(Q.Z, F);
   E U1 = mul_lazy(P.X, Z2Z2, F);
   E U2 = mul_lazy(Q.X, Z1Z1, F);
   E S1 = mul_lazy(mul_lazy(P.Y, Q.Z, F), Z2Z2, F);
@@ -121,15 +129,15 @@ __device__ __forceinline__ Jac<E> jac_add(const Jac<E>& P, const Jac<E>& Q,
   E H = sub2p(U2, U1, F);
   E r = double2p(sub2p(S2, S1, F), F);
   E H2 = double2p(H, F);
-  E I = mul_lazy(H2, H2, F);
+  E I = sqr_lazy(H2, F);
   E J = mul_lazy(H, I, F);
   E V = mul_lazy(U1, I, F);
   Jac<E> R;
-  R.X = sub2p(sub2p(mul_lazy(r, r, F), J, F), double2p(V, F), F);
+  R.X = sub2p(sub2p(sqr_lazy(r, F), J, F), double2p(V, F), F);
   R.Y = sub2p(mul_lazy(r, sub2p(V, R.X, F), F),
               double2p(mul_lazy(S1, J, F), F), F);
   E zz = add2p(P.Z, Q.Z, F);
-  R.Z = mul_lazy(sub2p(sub2p(mul_lazy(zz, zz, F), Z1Z1, F), Z2Z2, F), H, F);
+  R.Z = mul_lazy(sub2p(sub2p(sqr_lazy(zz, F), Z1Z1, F), Z2Z2, F), H, F);
 
   const bool inf1 = is_zero_lazy(P.Z, F);
   const bool inf2 = is_zero_lazy(Q.Z, F);
@@ -148,7 +156,7 @@ template <class E>
 __device__ __forceinline__ void ld_jac(Jac<E>& r, const uint32_t* x,
                                        const uint32_t* y, const uint32_t* z,
                                        long long i) {
-  constexpr int W = sizeof(E) / 4;
+  constexpr int W = Row<E>::W;
   ld(r.X, x + i * W);
   ld(r.Y, y + i * W);
   ld(r.Z, z + i * W);
@@ -159,7 +167,7 @@ __device__ __forceinline__ void st_jac_canon(uint32_t* x, uint32_t* y,
                                              uint32_t* z, long long i,
                                              const Jac<E>& r,
                                              const FieldC& F) {
-  constexpr int W = sizeof(E) / 4;
+  constexpr int W = Row<E>::W;
   st(x + i * W, canon(r.X, F));
   st(y + i * W, canon(r.Y, F));
   st(z + i * W, canon(r.Z, F));

@@ -5,30 +5,35 @@
 //
 // Replaces gnark_tpu/ec/pallas_ec.py jac_add_mixed_p, jac_double_p and
 // jac_add_p (formulas _jac_add_mixed_t, _jac_double_t and _jac_add_t,
-// jac.cuh), which the reference defines for G1 only. K6 and K7 carry the
-// fixed-base ladder of Groth16 Setup (gnark_tpu/msm/fixed_base.py
-// batch_scalar_mul): per bit, one double of every accumulator and one
-// mixed add of the one base point, where inf2 = ~bit turns the add into
-// the identity on R. In the scan-path MSM (msm/pippenger.py) K6 is the
-// bucket update of each step, K8 the group fold, the bucket suffix sums
-// and the Horner adds, K7 the Horner doublings.
+// jac.cuh), which the reference defines for G1 only. In the scan-path
+// MSM (msm/pippenger.py) K6 is the bucket update of each step, K8 the
+// group fold, the bucket suffix sums and the Horner adds, K7 the Horner
+// doublings. Setup's fixed-base ladder runs the same two formulas fused
+// in ladder.cu; the per-bit K7 + K6 sequence is what it is checked
+// against.
 //
 // K8 is 16 products (11M + 5S) against 288 B (G1) of traffic per point,
 // so it is bound by operations as K6 is; one thread per point, the
 // doubling branch taken only by the lanes that need it.
 //
 // Bound on this card: operations. A G1 mixed add is 11 Montgomery
-// products and a double 7 (x3 base products for G2), against 192 B
+// products (4 of them squarings) and a double 7 (5 squarings), x3 base
+// products for a G2 product and x2 for a G2 squaring, against 192 B
 // (double) to 193 B (add with a broadcast base) of traffic per point:
 // ~2900 32-bit multiplies per 193 B for the add. Design: one thread per
 // point, the whole formula in registers; the affine operand is read with
 // stride 0 when it is one point (it stays in L1), the mask as one byte a
 // point. The doubling branch of the complete add is taken only by the
 // lanes that need it, through a call, not evaluated on every lane as the
-// TPU kernel's selects do. The Fp2 instantiation is expected to reach
-// 255 registers and spill (see the ptxas report of the build).
+// TPU kernel's selects do. In G2, K6 and K7 give a point to a lane pair
+// (Fp2s, fp2s.cuh: c0 on the even lane, c1 on the odd), at twice the
+// threads, so each thread holds G1-sized state; the mask and the
+// affine operand are read per point. K8's G2 keeps the one-thread Fp2,
+// which reaches 255 registers and spills (see the ptxas report of the
+// build).
 #include "jac.cuh"
 
+// E: Fp (G1), or Fp2s (G2, Row<E>::lanes threads a point)
 template <class E>
 __global__ void jac_madd_kernel(const uint32_t* x1, const uint32_t* y1,
                                 const uint32_t* z1,
@@ -38,8 +43,9 @@ __global__ void jac_madd_kernel(const uint32_t* x1, const uint32_t* y1,
                                 long long stride2, uint32_t* ox,
                                 uint32_t* oy, uint32_t* oz, long long n,
                                 FieldC F) {
-  constexpr int W = sizeof(E) / 4;
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  constexpr int W = Row<E>::W;
+  long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) /
+                Row<E>::lanes;
   if (i >= n) return;
   Jac<E> P;
   ld_jac(P, x1, y1, z1, i);
@@ -53,7 +59,8 @@ template <class E>
 __global__ void jac_dbl_kernel(const uint32_t* x1, const uint32_t* y1,
                                const uint32_t* z1, uint32_t* ox, uint32_t* oy,
                                uint32_t* oz, long long n, FieldC F) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) /
+                Row<E>::lanes;
   if (i >= n) return;
   Jac<E> P;
   ld_jac(P, x1, y1, z1, i);
@@ -76,6 +83,11 @@ __global__ void jac_add_kernel(const uint32_t* x1, const uint32_t* y1,
 
 static const int T = 128;
 
+// blocks of T threads for n points of `lanes` threads each
+static unsigned blocks(long long n, int lanes) {
+  return (unsigned)((lanes * n + T - 1) / T);
+}
+
 // bcast != 0: x2, y2 hold one point for every row (stride 0).
 extern "C" int gt_jac_add_mixed(const void* x1, const void* y1,
                                 const void* z1, const void* x2,
@@ -84,17 +96,16 @@ extern "C" int gt_jac_add_mixed(const void* x1, const void* y1,
                                 int fp2, const void* consts, void* stream) {
   if (n <= 0) return 0;
   FieldC F = field_from_host((const uint32_t*)consts);
-  unsigned blocks = (unsigned)((n + T - 1) / T);
   cudaStream_t s = (cudaStream_t)stream;
   long long stride2 = bcast ? 0 : 1;
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_madd_kernel<Fp2><<<blocks, T, 0, s>>>(
+    jac_madd_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (const uint8_t*)inf2,
         stride2, (p)ox, (p)oy, (p)oz, n, F);
   else
-    jac_madd_kernel<Fp><<<blocks, T, 0, s>>>(
+    jac_madd_kernel<Fp><<<blocks(n, 1), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (const uint8_t*)inf2,
         stride2, (p)ox, (p)oy, (p)oz, n, F);
   return (int)cudaGetLastError();
@@ -105,16 +116,15 @@ extern "C" int gt_jac_double(const void* x1, const void* y1, const void* z1,
                              int fp2, const void* consts, void* stream) {
   if (n <= 0) return 0;
   FieldC F = field_from_host((const uint32_t*)consts);
-  unsigned blocks = (unsigned)((n + T - 1) / T);
   cudaStream_t s = (cudaStream_t)stream;
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_dbl_kernel<Fp2><<<blocks, T, 0, s>>>((cp)x1, (cp)y1, (cp)z1, (p)ox,
-                                             (p)oy, (p)oz, n, F);
+    jac_dbl_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
+        (cp)x1, (cp)y1, (cp)z1, (p)ox, (p)oy, (p)oz, n, F);
   else
-    jac_dbl_kernel<Fp><<<blocks, T, 0, s>>>((cp)x1, (cp)y1, (cp)z1, (p)ox,
-                                            (p)oy, (p)oz, n, F);
+    jac_dbl_kernel<Fp><<<blocks(n, 1), T, 0, s>>>(
+        (cp)x1, (cp)y1, (cp)z1, (p)ox, (p)oy, (p)oz, n, F);
   return (int)cudaGetLastError();
 }
 
@@ -124,17 +134,16 @@ extern "C" int gt_jac_add(const void* x1, const void* y1, const void* z1,
                           const void* consts, void* stream) {
   if (n <= 0) return 0;
   FieldC F = field_from_host((const uint32_t*)consts);
-  unsigned blocks = (unsigned)((n + T - 1) / T);
   cudaStream_t s = (cudaStream_t)stream;
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_add_kernel<Fp2><<<blocks, T, 0, s>>>((cp)x1, (cp)y1, (cp)z1, (cp)x2,
-                                             (cp)y2, (cp)z2, (p)ox, (p)oy,
-                                             (p)oz, n, F);
+    jac_add_kernel<Fp2><<<blocks(n, 1), T, 0, s>>>(
+        (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
+        n, F);
   else
-    jac_add_kernel<Fp><<<blocks, T, 0, s>>>((cp)x1, (cp)y1, (cp)z1, (cp)x2,
-                                            (cp)y2, (cp)z2, (p)ox, (p)oy,
-                                            (p)oz, n, F);
+    jac_add_kernel<Fp><<<blocks(n, 1), T, 0, s>>>(
+        (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
+        n, F);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,9 @@
 // with 64-bit accumulators (one 32 x 32 -> 64 multiply-add per word
 // pair). The lazy class of the reference is kept exactly:
 //   mul_lazy      in < 2p, out < 2p  (no final subtract; needs 4p < R)
+//   sqr_lazy      a * a, in < 2p, out < 2p: the same value as mul_lazy
+//                 (Fp: each cross product once; fp2s.cuh: one product a
+//                 lane)
 //   sop2 / sop4   sum of 2 / 4 products, one / two conditional 2p subtracts
 //   add2p, sub2p, neg2p, double2p   on [0, 2p)
 //   canon         < 3p -> [0, p) with two conditional p subtracts
@@ -205,6 +208,61 @@ __device__ __forceinline__ Fp mul_lazy(const Fp& a, const Fp& b,
   return r;
 }
 
+// a * a * R^-1 by separated operand scanning: the 28 products a_i a_j,
+// i < j, once, doubled, plus the 8 squares, then 8 reduction rows; 100
+// word products and 8 for the m words, against mul_lazy's 128 and 8.
+// The same value as mul_lazy(a, a): m = -a^2 p^-1 mod R is unique.
+// a < 2p < 2^255, so a^2 and a^2 + m p fit 16 words (no carry out).
+__device__ __forceinline__ Fp sqr_lazy(const Fp& a, const FieldC& F) {
+  uint32_t t[2 * GT_NW];
+#pragma unroll
+  for (int i = 0; i < 2 * GT_NW; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < GT_NW - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < GT_NW; ++j) {
+      uint64_t s = (uint64_t)a.w[i] * a.w[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + GT_NW] = (uint32_t)c;
+  }
+#pragma unroll
+  for (int i = 2 * GT_NW - 1; i > 0; --i)
+    t[i] = (t[i] << 1) | (t[i - 1] >> 31);
+  t[0] <<= 1;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) {
+    uint64_t d = (uint64_t)a.w[i] * a.w[i];
+    uint64_t s = (d & 0xFFFFFFFFu) + t[2 * i] + c;
+    t[2 * i] = (uint32_t)s;
+    s = (d >> 32) + t[2 * i + 1] + (s >> 32);
+    t[2 * i + 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+  uint32_t extra = 0;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) {
+    uint32_t m = t[i] * F.n0;
+    uint64_t cc = 0;
+#pragma unroll
+    for (int j = 0; j < GT_NW; ++j) {
+      uint64_t s = (uint64_t)m * F.p[j] + t[i + j] + cc;
+      t[i + j] = (uint32_t)s;
+      cc = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + GT_NW] + cc + extra;
+    t[i + GT_NW] = (uint32_t)s;
+    extra = (uint32_t)(s >> 32);
+  }
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) r.w[i] = t[GT_NW + i];
+  return r;
+}
+
 __device__ __forceinline__ Fp sop2(const Fp& a1, const Fp& b1, const Fp& a2,
                                    const Fp& b2, const FieldC& F) {
   Fp a[2] = {a1, a2};
@@ -288,6 +346,11 @@ __device__ __forceinline__ Fp2 mul_lazy(const Fp2& a, const Fp2& c,
   Fp m = mul_lazy(add2p(a.c0, a.c1, F), add2p(c.c0, c.c1, F), F);
   r.c1 = sub2p(sub2p(m, t0, F), t1, F);
   return r;
+}
+
+// one thread an Fp2 (K8's G2): as the product
+__device__ __forceinline__ Fp2 sqr_lazy(const Fp2& a, const FieldC& F) {
+  return mul_lazy(a, a, F);
 }
 
 // a*c + d*e: r0 = a0c0 - a1c1 + d0e0 - d1e1, r1 = a0c1 + a1c0 + d0e1 + d1e0

@@ -4,10 +4,13 @@ conversion of its result.
 Counterpart of gnark_tpu.msm.fixed_base (gnark-crypto
 BatchScalarMultiplicationG1/G2, the device work of Groth16 Setup): one
 base point, n scalars, one double-and-add ladder over the bits, MSB
-first. Each bit is one K7 jac_double of every accumulator and one K6
+first: per bit one K7 jac_double of the accumulator and one K6
 jac_add_mixed of the base. The reference's select(bit, R + base, R) is
 the mixed add with the affine operand masked as infinity where the bit
-is 0 (jac_add_mixed returns R there), so no third pass is needed.
+is 0 (jac_add_mixed returns R there), so no third step is needed. On a
+CUDA tensor the whole ladder is one launch of a kernel that fuses the
+two (csrc/ladder.cu); on a CPU tensor its plain version runs the
+per-bit sequence over the plain K7 and K6.
 
 Points are (n, Lw) int32 words (Lw = 8 for G1, 16 for flat G2 rows);
 scalars are (n, nw) int32 words of plain (non-Montgomery) integers.
@@ -15,10 +18,16 @@ scalars are (n, nw) int32 words of plain (non-Montgomery) integers.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
-from gnark_tpu_torch.ec.jac_ec import jac_add_mixed, jac_double
-from gnark_tpu_torch.ec.proj_ec import _lw, is_fp2
+from gnark_tpu_torch import cuda
+from gnark_tpu_torch.ec.jac_ec import (jac_add_mixed, jac_add_mixed_plain,
+                                       jac_double, jac_double_plain)
+from gnark_tpu_torch.ec.proj_ec import _lw, is_fp2, kernel_field
 from gnark_tpu_torch.ff import on_words
 from gnark_tpu_torch.ff.mont_mul import mont_mul
 
@@ -32,18 +41,70 @@ def jac_infinity_words(ff, n: int, device) -> tuple:
     return (one, one.clone(), torch.zeros_like(one))
 
 
-def batch_scalar_mul(ff, base_affine, nbits: int, scalars: torch.Tensor):
-    """[s_i] * base for each row of scalars: base_affine is (x, y), one
-    affine point in words ((Lw,) or (1, Lw)); returns Jacobian words."""
+def per_bit_ladder(ff, base_affine, nbits: int, scalars, dbl=jac_double,
+                   madd=jac_add_mixed):
+    """The ladder one bit at a time: per bit, R = dbl(R), then R =
+    madd(R, base, ~bit). With K7 and K6 (the defaults) on the card it is
+    the launch sequence that the ladder kernel fuses."""
     n = scalars.shape[0]
     bx, by = (a.reshape(1, -1) for a in base_affine)
     R = jac_infinity_words(ff, n, scalars.device)
-    for i in range(nbits):
-        R = jac_double(ff, R)
-        b = nbits - 1 - i
+    for b in range(nbits - 1, -1, -1):
+        R = dbl(ff, R)
         bit = (scalars[:, b // 32] >> (b % 32)) & 1
-        R = jac_add_mixed(ff, R, bx, by, bit == 0)
+        R = madd(ff, R, bx, by, bit == 0)
     return R
+
+
+def batch_scalar_mul_plain(ff, base_affine, nbits: int, scalars):
+    """Plain version of batch_scalar_mul: the per-bit ladder over the
+    plain K7 and K6."""
+    return per_bit_ladder(ff, base_affine, nbits, scalars, jac_double_plain,
+                          jac_add_mixed_plain)
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder_fn():
+    return cuda.bind("ladder", "gt_ladder", 6,
+                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+
+
+def batch_scalar_mul(ff, base_affine, nbits: int, scalars: torch.Tensor):
+    """[s_i] * base for each row of scalars: base_affine is (x, y), one
+    affine point in words ((Lw,) or (1, Lw)), < 2p; the low nbits bits
+    of each scalar count. Returns Jacobian words, canonical."""
+    if scalars.dim() != 2 or scalars.dtype != torch.int32:
+        raise ValueError(f"batch_scalar_mul: scalars must be (n, nw) int32 "
+                         f"words, got {scalars.dtype} {tuple(scalars.shape)}")
+    if not 0 <= nbits <= 32 * scalars.shape[1]:
+        raise ValueError(f"batch_scalar_mul: nbits = {nbits} for scalars "
+                         f"of {scalars.shape[1]} words")
+    if len(base_affine) != 2 or any(a.numel() != _lw(ff)
+                                    for a in base_affine):
+        raise ValueError(f"batch_scalar_mul: the base must be (x, y) of "
+                         f"{_lw(ff)} words each")
+    if any(a.device != scalars.device for a in base_affine):
+        raise ValueError("batch_scalar_mul: the base and the scalars on "
+                         "different devices")
+    if scalars.device.type == "cpu":
+        return batch_scalar_mul_plain(ff, base_affine, nbits, scalars)
+    consts = kernel_field(ff)
+    n = scalars.shape[0]
+    sc = cuda.dev_words(scalars, "batch_scalar_mul scalars", (n, 8))
+    bx, by = (np.ascontiguousarray(a.reshape(-1).cpu().numpy()
+                                   .view(np.uint32)) for a in base_affine)
+    out = tuple(torch.empty((n, _lw(ff)), dtype=torch.int32,
+                            device=sc.device) for _ in range(3))
+    rc = _ladder_fn()(sc.data_ptr(), bx.ctypes.data, by.ctypes.data,
+                      *(a.data_ptr() for a in out), n, nbits,
+                      int(is_fp2(ff)), consts.ctypes.data, cuda.stream(sc))
+    cuda.check(rc, "batch_scalar_mul")
+    batch_scalar_mul.launches += 1
+    return out
+
+
+batch_scalar_mul.launches = 0
 
 
 def _inv(f, z):

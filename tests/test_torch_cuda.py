@@ -1,16 +1,16 @@
-"""The CUDA kernels K1-K9 against their plain PyTorch versions, and the
-scan-path MSM against the bucket path, on the card. Every test here
-needs an NVIDIA GPU and skips without one.
+"""The CUDA kernels K1-K9 and the fixed-base ladder against their plain
+PyTorch versions, and the scan-path MSM against the bucket path, on the
+card. Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor gnark_tpu, so it also runs where JAX
 is not installed (tests/conftest.py imports jax, hence --noconftest):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-Tolerance: bit-exact for K1-K3, K5-K8 and K4's digit kernel (canonical
-outputs are fixed functions of the inputs); equal as group elements for
-K4, K9 and the two MSM paths (the order of additions differs, so the
-representatives do)."""
+Tolerance: bit-exact for K1-K3, K5-K8, the ladder and K4's digit
+kernel (canonical outputs are fixed functions of the inputs); equal as
+group elements for K4, K9 and the two MSM paths (the order of additions
+differs, so the representatives do)."""
 
 import random
 
@@ -31,7 +31,9 @@ from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                         bucket_msm_plain, bucket_reduce,
                                         bucket_reduce_plain, curve_b3,
                                         curve_b3_g2, signed_digits)
-from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul_affine
+from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
+                                            batch_scalar_mul_affine,
+                                            batch_scalar_mul_plain)
 from gnark_tpu_torch.msm.pippenger import msm_raw, scalar_limbs
 from gnark_tpu_torch.ntt import Domain
 from gnark_tpu_torch.ntt.fourstep import dif_stage_tw, row_fft, \
@@ -228,6 +230,80 @@ def test_fixed_base_ladder(dev, g2):
                                   sc.to(dev))
     want = batch_scalar_mul_affine(ff, base, 20, sc)
     assert all(torch.equal(u.cpu(), v) for u, v in zip(got, want))
+
+
+def _raw_scalars(vals, dev):
+    """Ints below 2^256 -> (n, 8) int32 words as they are
+    (encode_words(..., mont=False) reduces mod r: r would become 0)."""
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    return torch.frombuffer(bytearray(buf), dtype=torch.int32) \
+        .reshape(len(vals), 8).to(dev)
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_ladder_kernel(dev, g2):
+    """The fused ladder kernel against its plain version (the per-bit
+    plain K7 + K6) at 254 bits on 1,029 rows, bit-exact: 0, 1, r - 1, r
+    (P == -A at the last add) and r + 2 (P == A, the doubling branch),
+    then random scalars; the edge rows against the host."""
+    ff, hf, _, gen = _group(g2)
+    r = CURVE.fr.modulus
+    rng = random.Random(12)
+    ks = [0, 1, r - 1, r, r + 2] + [rng.randrange(r) for _ in range(1024)]
+    sc = _raw_scalars(ks, dev)
+    base = tuple(torch.as_tensor(ff.encode_words([c]), device=dev)
+                 .reshape(1, -1) for c in gen)
+    got = batch_scalar_mul(ff, base, CURVE.fr.bits, sc)
+    want = batch_scalar_mul_plain(ff, base, CURVE.fr.bits, sc)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    for i, k in enumerate(ks[:5]):
+        assert _to_affine_host(ff, hf, "jac", tuple(a[i:i + 1] for a in got)) \
+            == host.ec_mul(hf, gen, k % r)
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_jac_madd_double_edges(dev, g2):
+    """K6 and K7 (G2 on lane pairs) against their plain versions on 509
+    points (a ragged last block): an accumulator at infinity, a masked
+    operand, R == A (the doubling branch), R == -A, both at infinity, X
+    in [p, 2p); per-row and broadcast operands; bit-exact, and the edge
+    rows against the host."""
+    ff, hf, _, gen = _group(g2)
+    rng = random.Random(13)
+    base = [gen]
+    for _ in range(15):
+        base.append(host.ec_add(hf, base[-1], gen))
+    n = 509
+    P = [base[rng.randrange(16)] for _ in range(n)]
+    A = [base[rng.randrange(16)] for _ in range(n)]
+    inf2 = [rng.random() < 0.1 for _ in range(n)]
+    P[0], inf2[0] = host.INF, False
+    inf2[1] = True
+    A[2], inf2[2] = P[2], False
+    A[3], inf2[3] = host.ec_neg(hf, P[3]), False
+    P[4], inf2[4] = host.INF, True
+    Pw = _jac_words(ff, hf, P, rng, dev, 40)
+    x2, y2 = (torch.as_tensor(ff.encode_words([a[i] for a in A]),
+                              device=dev).reshape(n, -1) for i in (0, 1))
+    gx, gy = (torch.as_tensor(ff.encode_words([c]), device=dev)
+              .reshape(1, -1) for c in gen)
+    mask = torch.tensor(inf2, device=dev)
+
+    def host_row(R, i):
+        return _to_affine_host(ff, hf, "jac", tuple(a[i:i + 1] for a in R))
+
+    for ax, ay, Ai in ((x2, y2, A), (gx, gy, [gen] * n)):
+        got = jac_add_mixed(ff, Pw, ax, ay, mask)
+        want = jac_add_mixed_plain(ff, Pw, ax, ay, mask)
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+        for i in range(8):
+            assert host_row(got, i) == (P[i] if inf2[i] else
+                                        host.ec_add(hf, P[i], Ai[i]))
+    got = jac_double(ff, Pw)
+    assert all(torch.equal(u, v) for u, v in zip(got,
+                                                 jac_double_plain(ff, Pw)))
+    for i in range(8):
+        assert host_row(got, i) == host.ec_dbl(hf, P[i])
 
 
 def _jac_words(ff, hf, pts, rng, dev, lazy=0):
