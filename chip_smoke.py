@@ -7,32 +7,37 @@ Phases (any failure exits non-zero):
   2. build: the eight CUDA kernel libraries (one nvcc each, in
      parallel) and the native witness solver;
   3. every kernel against its plain PyTorch version on the card:
-     K1 mont_mul, K2 row_fft (and whole four-step transforms), K3
+     K1 mont_mul, mont_mul_sub_mul ((a*b - c)*d, broadcast d) and
+     affine_words (Jacobian -> affine in G1 and G2: infinity, Z = 1, Z in
+     [p, 2p)), K2 row_fft (and whole four-step transforms), K3
      proj_add / proj_double, K4 bucket_msm (at c = 8 and at the main
      path's width; its digit kernel at every width) and K9
      bucket_reduce (on K4's sums, all buckets empty, one bucket a
      window, full buckets with equal neighbours and lazy inputs), in G1
-     and G2 with edge cases; K5 butterfly (every stage of 2^13, and
-     whole radix-2 transforms), K6 jac_add_mixed / K7 jac_double (G2
-     on lane pairs) / K8 jac_add in G1 and G2 with edge cases, and the
-     fused fixed-base ladder at 254 bits on the scalars that take the
-     complete add's branches (0, 1, r - 1, r, r + 2);
+     and G2 with edge cases; K5 radix2_ntt (whole transforms at every n
+     from 2^1 to 2^13, forward and inverse, in at most two launches; its
+     one-stage helper on every stage of 2^13), K6 jac_add_mixed / K7
+     jac_double (G2 on lane pairs) / K8 jac_add in G1 and G2 with edge
+     cases, and the fused fixed-base ladder at 254 bits on the scalars
+     that take the complete add's branches (0, 1, r - 1, r, r + 2);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
-     at all; the five MSMs are checked against one host scalar
-     multiplication each, and H by Schwartz-Zippel at a random point;
+     at all, each computeH mont_mul_sub_mul once; the five MSMs are
+     checked against one host scalar multiplication each, and H by
+     Schwartz-Zippel at a random point;
      then the first prove again with GNARK_TPU_MSM_IMPL=scan (the
      scan-path MSM: K6, K8, K7, no K4 or K9): the same proof, and the
      five MSMs again against their known values;
   5. the setup -> prove -> verify path, in three configurations:
-     g16_20 (Setup at 2^20: one ladder launch a group and no K6 or K7;
-     sampled key points against host scalar multiplications of the
-     toxic waste, one proof that verifies, one tampered proof that does
-     not), merkle_d12 (the Merkle membership
-     example at depth 12, N = 2^13, on the radix-2 plan: setup, three
-     proves, verify; a wrong root does not verify) and rc_20 (2^17 secret
-     64-bit values range-checked through std/rangecheck, one BSB22
+     g16_20 (Setup at 2^20: one ladder launch and one affine_words
+     launch a group, no K6, K7 or mont_mul; sampled key points against
+     host scalar multiplications of the toxic waste, one proof that
+     verifies, one tampered proof that does not), merkle_d12 (the Merkle
+     membership example at depth 12, N = 2^13, on the radix-2 plan, at
+     most two K5 launches a transform: setup, three proves, verify; a
+     wrong root does not verify) and rc_20 (2^17 secret 64-bit values
+     range-checked through std/rangecheck, one BSB22
      commitment over 589,824 wires, N = 2^20: setup, two proves and one
      on the scan path that must equal the second, verify; a swapped
      commitment and PoK, and a tampered PoK, do not verify);
@@ -41,9 +46,12 @@ Phases (any failure exits non-zero):
      key's columns, 2^20 distinct points, with K4's grouping and passes
      timed apart; the ladder on the g16_20 setup's scalars, bit-exact
      against its plain version on the first 1,024 and against the
-     per-bit K7 + K6 sequence on all, both timed); its
-     launches during its path, its time, its bound and its plain
-     version's time, as one JSON line; the whole bucket MSM at
+     per-bit K7 + K6 sequence on all, both timed; affine_words on the
+     ladder's output, bit-exact against the plain chain on the first
+     1,024; mont_mul_sub_mul at 2^20 with computeH timed part by part;
+     one whole 2^13 K5 transform); its launches during its path, its
+     time, its bound and its plain version's time, as one JSON line;
+     the whole bucket MSM at
      each window width of SWEEP_C on those columns and their first 2^16
      and 2^13 points (one group element at every width); then the card's
      name and power limit, and the device as the last line.
@@ -197,7 +205,9 @@ def phase_kernels(rng, res):
     from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
                                             proj_double, proj_double_plain)
     from gnark_tpu_torch.ff import get_ff
-    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
+    from gnark_tpu_torch.ff.mont_mul import (mont_mul, mont_mul_plain,
+                                             mont_mul_sub_mul,
+                                             mont_mul_sub_mul_plain)
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_msm_plain,
                                             bucket_reduce,
@@ -223,6 +233,19 @@ def phase_kernels(rng, res):
     res["mont_mul"]["max_abs_err"] = err
     log(f"K1 mont_mul: (65536, 8) x (65536|1, 8) fr+fp bit-exact "
         f"{cuda_ms(lambda: mont_mul(fr, a, b)):.4f} ms")
+    # K1's (a*b - c)*d: 2^16 elements, some of each operand in [p, 2p),
+    # d per element and broadcast
+    err = 0
+    for ff in (fr, fp):
+        a, b, cc, d = (rand_words(ff, 1 << 16, rng, lazy=1000)
+                       for _ in range(4))
+        for dd in (d, d[:1]):
+            got = mont_mul_sub_mul(ff, a, b, cc, dd)
+            want = mont_mul_sub_mul_plain(ff, a, b, cc, dd)
+            check(torch.equal(got, want), f"K1 mont_mul_sub_mul {ff.p.name}")
+            err = max(err, max_abs(got, want))
+    res["mont_mul_sub_mul"]["max_abs_err"] = err
+    log("K1 mont_mul_sub_mul: (65536, 8) x3 x (65536|1, 8) fr+fp bit-exact")
 
     # K2: rows of 2^10 and 2^9
     err = 0
@@ -414,15 +437,15 @@ def scan_msm():
 def all_wrappers():
     from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_mixed, jac_double
     from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
-    from gnark_tpu_torch.ff.mont_mul import mont_mul
+    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_reduce)
-    from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul
+    from gnark_tpu_torch.msm.fixed_base import affine_words, batch_scalar_mul
     from gnark_tpu_torch.ntt.fourstep import row_fft
-    from gnark_tpu_torch.ntt.radix2 import butterfly
-    return (mont_mul, row_fft, proj_add, proj_double, bucket_msm, butterfly,
+    from gnark_tpu_torch.ntt.radix2 import butterfly, radix2_ntt
+    return (mont_mul, row_fft, proj_add, proj_double, bucket_msm, radix2_ntt,
             jac_add_mixed, jac_double, jac_add, bucket_reduce, bucket_digits,
-            batch_scalar_mul)
+            batch_scalar_mul, mont_mul_sub_mul, affine_words, butterfly)
 
 
 def scan_prove(what, fn):
@@ -459,8 +482,11 @@ def transforms_err(dg, dc, x, what):
 
 
 def phase_kernels_jac_ntt(rng, res):
-    """K5 over every stage of 2^13 and whole 2^13 transforms; K6, K7 and
-    K8 over 2^12 points in G1 and G2 with edge cases."""
+    """K5: whole transforms at every n from 2^1 to 2^13, forward and
+    inverse, on inputs in [p, 2p), its one-stage helper over every stage
+    of 2^13, and the Domain's 2^13 transforms; K6, K7 and K8 over 2^12
+    points in G1 and G2 with edge cases."""
+    import numpy as np
     import torch
     from gnark_tpu_torch.ec import curves, host
     from gnark_tpu_torch.ec.fp2 import get_ff2
@@ -470,9 +496,30 @@ def phase_kernels_jac_ntt(rng, res):
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.ntt import Domain
     from gnark_tpu_torch.ntt.radix2 import (butterfly, butterfly_plain,
-                                            stage_twiddles)
+                                            ntt_launches, radix2_ntt,
+                                            radix2_ntt_plain, stage_twiddles)
 
     fr = get_ff("bn254_fr")
+    q = fr.p.modulus
+    err = 0
+    for k in range(1, 14):
+        m = 1 << k
+        for w in (fr.p.root_of_unity(m), pow(fr.p.root_of_unity(m), -1, q)):
+            tw = torch.as_tensor(np.concatenate(stage_twiddles(fr, m, w)),
+                                 device=DEV)
+            x = rand_words(fr, m, rng, lazy=m // 3 + 1)
+            before = radix2_ntt.launches
+            got = radix2_ntt(fr, x, tw)
+            check(radix2_ntt.launches - before == ntt_launches(m) <= 2,
+                  f"K5 radix2_ntt 2^{k}: {radix2_ntt.launches - before} "
+                  f"launches")
+            want = radix2_ntt_plain(fr, x, tw)
+            check(torch.equal(got, want), f"K5 radix2_ntt 2^{k}")
+            err = max(err, max_abs(got, want))
+    res["radix2_ntt"]["max_abs_err"] = err
+    log("K5 radix2_ntt: every n from 2^1 to 2^13, forward and inverse, a "
+        "third of the inputs in [p, 2p), bit-exact; one launch up to 2^10, "
+        "two above")
     n = 1 << 13
     tws = stage_twiddles(fr, n, fr.p.root_of_unity(n))
     err = 0
@@ -485,9 +532,11 @@ def phase_kernels_jac_ntt(rng, res):
         err = max(err, max_abs(got, want))
     err = max(err, transforms_err(Domain(fr, n, DEV), Domain(fr, n, "cpu"),
                                   rand_words(fr, n, rng), "radix-2"))
-    res["butterfly"]["max_abs_err"] = err
-    log(f"K5 butterfly: all 13 stages of 2^13 (500 inputs in [p, 2p)) and "
-        f"2^13 fft/ifft/coset fft/coset ifft bit-exact")
+    res["radix2_ntt"]["max_abs_err"] = max(res["radix2_ntt"]["max_abs_err"],
+                                           err)
+    log(f"K5's one-stage helper butterfly: all 13 stages of 2^13 (500 "
+        f"inputs in [p, 2p)) bit-exact; 2^13 fft/ifft/coset fft/coset ifft "
+        f"bit-exact")
 
     c = curves.CURVES["bn254"]
     errs = {"jac_add_mixed": 0, "jac_double": 0, "jac_add": 0}
@@ -600,6 +649,78 @@ def phase_kernels_ladder(rng, res):
     res["batch_scalar_mul"]["max_abs_err"] = err
 
 
+def lazy_rows(words, q):
+    """Each 8-word element of the rows plus p: canonical -> [p, 2p)."""
+    import numpy as np
+    arr = np.ascontiguousarray(words.cpu().numpy().astype("<i4"))
+    vals = [int.from_bytes(r.tobytes(), "little") + q
+            for r in arr.reshape(-1, 8)]
+    return raw_words(vals).reshape(words.shape)
+
+
+AFFINE_TILE = 1024
+
+
+def phase_kernels_affine(rng, res):
+    """K1's affine kernel (affine_words) against its plain version, the
+    Fermat chain of plain products, on 1,024 G1 and G2 Jacobian points
+    from the host: infinity (Z = 0), Z = 1, Z in [p, 2p) (and X in [p,
+    2p)), random Z; bit-exact, and the edge rows equal the host's affine
+    points."""
+    import torch
+    from gnark_tpu_torch.backend.groth16 import _host_points
+    from gnark_tpu_torch.ec import curves, host
+    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.msm import fixed_base
+    c = curves.CURVES["bn254"]
+    q = c.fp.modulus
+    err = 0
+    for g2 in (False, True):
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        hf = c.host_g2_field if g2 else c.host_fp
+        gen = c.g2 if g2 else c.g1
+        tag = "G2" if g2 else "G1"
+        base = [gen]
+        for _ in range(63):
+            base.append(host.ec_add(hf, base[-1], gen))
+        m = 1024
+        pts = [base[rng.randrange(64)] for _ in range(m)]
+        pts[0] = pts[7] = host.INF
+        X, Y, Z = point_words(ff, hf, pts, rng, g2, 100, jacobian=True)
+        x1, y1 = affine_words(ff, pts[1:2])                 # Z = 1
+        X[1], Y[1] = x1[0], y1[0]
+        Z[1] = torch.as_tensor(ff.encode_words([(1, 0) if g2 else 1]),
+                               device=DEV).reshape(-1)
+        Z[2:200] = lazy_rows(Z[2:200], q)                   # Z in [p, 2p)
+        P = (X, Y, Z)
+        got = fixed_base.affine_words(ff, P)
+        want = fixed_base.affine_words_plain(ff, P)
+        check(all(torch.equal(u, v) for u, v in zip(got, want)),
+              f"K1 affine_words {tag}")
+        err = max([err] + [max_abs(u, v) for u, v in zip(got, want)])
+        idx = [0, 1, 2, 3, 7, 200, 201]
+        shp = (-1, 2, 8) if g2 else (-1, 8)
+        inf = torch.tensor([pts[i] is host.INF for i in idx])
+        check(_host_points(ff, *(a[idx].reshape(shp) for a in got), inf) ==
+              [pts[i] for i in idx], f"K1 affine_words {tag} vs host")
+        check(all(int(a[i].abs().sum()) == 0 for a in got for i in (0, 7)),
+              f"K1 affine_words {tag}: infinity is not (0, 0)")
+        # the same points tiled 1024 times: more points than the kernel's
+        # threads, so each thread's batch inversion spans many of them,
+        # infinity and lazy Z included
+        big = fixed_base.affine_words(ff, tuple(a.repeat(AFFINE_TILE, 1)
+                                                for a in P))
+        check(all(torch.equal(u, v.repeat(AFFINE_TILE, 1))
+                  for u, v in zip(big, got)),
+              f"K1 affine_words {tag}: the tiled batch differs")
+        log(f"K1 affine_words {tag}: ({m}, {X.shape[1]}) Jacobian points "
+            f"(infinity, Z = 1, Z in [p, 2p), random Z) bit-exact against "
+            f"the plain Fermat chain, host-checked; the same words tiled "
+            f"to {m * AFFINE_TILE} points")
+    res["affine_words"]["max_abs_err"] = err
+
+
 def jac_to_host(ff, hf, P, i):
     """Row i of Jacobian words -> host affine point."""
     from gnark_tpu_torch.backend.groth16 import _to_affine_host
@@ -664,7 +785,7 @@ def phase_main(res):
     from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
     from gnark_tpu_torch.ff import get_ff
-    from gnark_tpu_torch.ff.mont_mul import mont_mul
+    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_reduce)
     from gnark_tpu_torch.ntt import get_domain
@@ -687,8 +808,8 @@ def phase_main(res):
     log(f"main path: domain tables and solver load in "
         f"{time.perf_counter() - t:.2f} s")
 
-    wrappers = (mont_mul, row_fft, proj_add, proj_double, bucket_digits,
-                bucket_msm, bucket_reduce)
+    wrappers = (mont_mul, mont_mul_sub_mul, row_fft, proj_add, proj_double,
+                bucket_digits, bucket_msm, bucket_reduce)
     for wr in wrappers:
         wr.launches = 0
     proofs = []
@@ -716,6 +837,8 @@ def phase_main(res):
     for k in ("bucket_digits", "bucket_msm", "bucket_reduce"):
         check(launches[k] == 3 * 5, f"{k} launched {launches[k]} times in "
               f"3 proves, not once for each of the 5 MSMs")
+    check(launches["mont_mul_sub_mul"] == 3, "mont_mul_sub_mul launched "
+          f"{launches['mont_mul_sub_mul']} times in 3 proves, not once each")
     t = time.perf_counter()
     try:
         check_prove(cs, pk, [], [j + 2 for j in range(N_CHAINS)],
@@ -769,13 +892,15 @@ def fmt_times(tm):
 
 
 def timed_setup(cs, what):
-    """groth16.setup on the card, timed by phase; the ladder kernel must
-    launch once for each of the two groups, and K6 and K7 not at all."""
+    """groth16.setup on the card, timed by phase; the ladder kernel and
+    K1's affine kernel must launch once for each of the two groups, and
+    K6, K7 and K1's product not at all."""
     from gnark_tpu_torch.backend import groth16
     from gnark_tpu_torch.ec.jac_ec import jac_add_mixed, jac_double
     from gnark_tpu_torch.ff.mont_mul import mont_mul
-    from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul
-    wrappers = (batch_scalar_mul, jac_add_mixed, jac_double, mont_mul)
+    from gnark_tpu_torch.msm.fixed_base import affine_words, batch_scalar_mul
+    wrappers = (batch_scalar_mul, affine_words, jac_add_mixed, jac_double,
+                mont_mul)
     for wr in wrappers:
         wr.launches = 0
     tm = {}
@@ -785,10 +910,10 @@ def timed_setup(cs, what):
     tm["total"] = time.perf_counter() - t
     launches = {wr.__name__: wr.launches for wr in wrappers}
     log(f"{what} setup (s): {fmt_times(tm)}; launches {json.dumps(launches)}")
-    check(launches["batch_scalar_mul"] == 2,
-          f"{what} setup launched the ladder {launches['batch_scalar_mul']} "
-          f"times, not once a group")
-    for k in ("jac_add_mixed", "jac_double"):
+    for k in ("batch_scalar_mul", "affine_words"):
+        check(launches[k] == 2, f"{what} setup launched {k} {launches[k]} "
+              f"times, not once a group")
+    for k in ("jac_add_mixed", "jac_double", "mont_mul"):
         check(launches[k] == 0,
               f"{what} setup launched {k} {launches[k]} times, not 0")
     return pk, vk, launches
@@ -845,7 +970,8 @@ def phase_setup(res, cs, rng):
     import torch
     from gnark_tpu_torch.ff import get_ff
     pk, vk, launches = timed_setup(cs, "g16_20")
-    res["batch_scalar_mul"]["launches"] = launches["batch_scalar_mul"]
+    for k in ("batch_scalar_mul", "affine_words"):
+        res[k]["launches"] = launches[k]
     t = time.perf_counter()
     s = check_key(cs, pk, vk, rng)
     log(f"g16_20 key: 64 sampled points of each of the five columns, the "
@@ -880,27 +1006,45 @@ def phase_merkle(res):
                                                        membership_assignment)
     from gnark_tpu_torch.frontend import compile_circuit, witness
     from gnark_tpu_torch.ntt.fourstep import row_fft
-    from gnark_tpu_torch.ntt.radix2 import butterfly
+    from gnark_tpu_torch.ntt.radix2 import Radix2, butterfly, radix2_ntt
     t = time.perf_counter()
     cs = compile_circuit(Membership(MERKLE_DEPTH), fields.BN254_FR)
     pub, sec = witness(membership_assignment(MERKLE_DEPTH, 5), cs)
     log(f"merkle_d12: circuit {cs.summary()} and witness in "
         f"{time.perf_counter() - t:.2f} s")
     pk, vk, _ = timed_setup(cs, "merkle_d12")
-    for wr in (butterfly, row_fft):
+    for wr in (radix2_ntt, butterfly, row_fft):
         wr.launches = 0
-    for i in range(3):
-        tm = {}
-        t = time.perf_counter()
-        proof = groth16.prove(cs, pk, pub, sec, rng=random.Random(20 + i),
-                              timings=tm)
-        tm["total"] = time.perf_counter() - t
-        log(f"merkle_d12 prove {i} (s): {fmt_times(tm)}")
-    launches = {"butterfly": butterfly.launches, "row_fft": row_fft.launches}
-    log("launches during 3 merkle_d12 proves: " + json.dumps(launches))
-    check(launches["butterfly"] > 0 and launches["row_fft"] == 0,
+    calls = [0]
+    plan_call = Radix2.__call__
+
+    def counted(self, x):
+        calls[0] += 1
+        return plan_call(self, x)
+    Radix2.__call__ = counted
+    try:
+        for i in range(3):
+            tm = {}
+            t = time.perf_counter()
+            proof = groth16.prove(cs, pk, pub, sec,
+                                  rng=random.Random(20 + i), timings=tm)
+            tm["total"] = time.perf_counter() - t
+            log(f"merkle_d12 prove {i} (s): {fmt_times(tm)}")
+    finally:
+        Radix2.__call__ = plan_call
+    launches = {"radix2_ntt": radix2_ntt.launches,
+                "butterfly": butterfly.launches, "row_fft": row_fft.launches,
+                "transforms": calls[0]}
+    log("launches during 3 merkle_d12 proves: " + json.dumps(launches) +
+        f"; K5 launches a prove: {radix2_ntt.launches / 3:g} (91 before "
+        f"the whole-transform kernel)")
+    check(calls[0] > 0 and launches["row_fft"] == 0 and
+          launches["butterfly"] == 0,
           "merkle_d12 proves did not take the radix-2 plan")
-    res["butterfly"]["launches"] = launches["butterfly"]
+    check(0 < radix2_ntt.launches <= 2 * calls[0],
+          f"merkle_d12: {radix2_ntt.launches} K5 launches for {calls[0]} "
+          f"transforms, more than two a transform")
+    res["radix2_ntt"]["launches"] = launches["radix2_ntt"]
     t = time.perf_counter()
     check(groth16.verify(proof, vk, pub), "merkle_d12: verify rejected")
     log(f"merkle_d12 verify: True in {time.perf_counter() - t:.3f} s")
@@ -1065,21 +1209,8 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
     times_k4_k9(res, rate, put, key_cols)
     sweep_widths(key_cols)
 
-    # K5: one stage of merkle_d12's 2^13 domain (its widest, half = 2^12)
-    from gnark_tpu_torch.ntt.radix2 import (butterfly, butterfly_plain,
-                                            stage_twiddles)
-    m = 1 << 13
-    y0 = rand_words(fr, m, rng)
-    tw = torch.as_tensor(stage_twiddles(fr, m, fr.p.root_of_unity(m))[-1],
-                         device=DEV)
-    yk = y0.clone()
-    ms, _ = timed(lambda: butterfly(fr, yk, tw))
-    yp = y0.clone()
-    pms, _ = timed(lambda: butterfly_plain(fr, yp, tw), 3)
-    got = butterfly(fr, y0.clone(), tw)
-    want = butterfly_plain(fr, y0.clone(), tw)
-    put("butterfly", "", [m, 8], ms, pms, 2 * m * 32 + tw.numel() * 4,
-        m // 2 * MUL_OPS["mul"], max_abs(got, want))
+    times_k5(res, put, rng)
+    times_computeh(res, put, rng, n)
 
     times_k6_k7(put, ladder_sc)
     times_ladder(res, rate, put, ladder_sc)
@@ -1110,6 +1241,79 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
             max(max_abs(u, v) for u, v in zip(got, want)),
             plain_shape=[min(pn, wide), Lw])
         del P, sl_, got, want
+
+
+def times_k5(res, put, rng):
+    """One whole K5 transform of merkle_d12's 2^13 domain against its
+    plain version, and against the sequence it replaced (the gather and
+    13 one-stage launches), timed beside it."""
+    import numpy as np
+    import torch
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ntt.fourstep import bitrev
+    from gnark_tpu_torch.ntt.radix2 import (butterfly, radix2_ntt,
+                                            radix2_ntt_plain, stage_twiddles)
+    fr = get_ff("bn254_fr")
+    m = 1 << 13
+    x = rand_words(fr, m, rng)
+    tw = torch.as_tensor(np.concatenate(stage_twiddles(
+        fr, m, fr.p.root_of_unity(m))), device=DEV)
+    ms, got = timed(lambda: radix2_ntt(fr, x, tw))
+    pms, want = timed(lambda: radix2_ntt_plain(fr, x, tw), 3)
+    put("radix2_ntt", "", [m, 8], ms, pms, 2 * m * 32 + tw.numel() * 4,
+        m // 2 * (m.bit_length() - 1) * MUL_OPS["mul"], max_abs(got, want))
+    rev = torch.as_tensor(bitrev(m), device=DEV)
+    stages = [tw[(1 << s) - 1:(2 << s) - 1] for s in range(13)]
+
+    def per_stage():
+        y = x.index_select(0, rev)
+        for t in stages:
+            butterfly(fr, y, t)
+        return y
+    res["radix2_ntt"]["per_stage_ms"], want = timed(per_stage)
+    check(torch.equal(got, want), "radix2_ntt differs from the per-stage "
+          "K5 sequence")
+    log(f"radix2_ntt 2^13: {ms:.4f} ms; the gather and 13 one-stage "
+        f"launches it replaced {res['radix2_ntt']['per_stage_ms']:.4f} ms, "
+        f"the same words")
+
+
+def times_computeh(res, put, rng, n):
+    """computeH of a 2^n-point prove, part by part, on random inputs: an
+    iFFT, a coset FFT, the pointwise (a*b - c)*den as the fused
+    mont_mul_sub_mul (timed against its plain version and its bound),
+    and as it ran before this kernel (K1, a plain int64-limb subtract,
+    K1; and that subtract alone), the coset iFFT and the K1 out of
+    Montgomery form."""
+    import torch
+    from gnark_tpu_torch.ff import get_ff, on_words
+    from gnark_tpu_torch.ff.mont_mul import (mont_mul, mont_mul_sub_mul,
+                                             mont_mul_sub_mul_plain)
+    from gnark_tpu_torch.ntt import get_domain
+    fr = get_ff("bn254_fr")
+    dom = get_domain(fr, n, DEV)
+    a, b, c = (rand_words(fr, n, rng) for _ in range(3))
+    d = rand_words(fr, 1, rng)
+    one = raw_words([1])
+    ms, got = timed(lambda: mont_mul_sub_mul(fr, a, b, c, d))
+    pms, want = timed(lambda: mont_mul_sub_mul_plain(fr, a, b, c, d), 3)
+    put("mont_mul_sub_mul", "", [n, 8], ms, pms, 4 * n * 32 + 32,
+        n * 2 * MUL_OPS["mul"], max_abs(got, want))
+    parts = {
+        "ifft": cuda_ms(lambda: dom.ifft(a)),
+        "coset_fft": cuda_ms(lambda: dom.fft(a, coset=True)),
+        "pointwise": ms,
+        "pointwise_before": cuda_ms(lambda: mont_mul(fr, on_words(
+            fr, "sub", mont_mul(fr, a, b), c), d)),
+        "plain_sub": cuda_ms(lambda: on_words(fr, "sub", a, c)),
+        "coset_ifft": cuda_ms(lambda: dom.ifft(a, coset=True)),
+        "from_mont": cuda_ms(lambda: mont_mul(fr, a, one))}
+    parts["computeH"] = 3 * (parts["ifft"] + parts["coset_fft"]) + \
+        parts["pointwise"] + parts["coset_ifft"] + parts["from_mont"]
+    res["mont_mul_sub_mul"]["computeH_parts_ms"] = parts
+    log(f"computeH at 2^{n.bit_length() - 1}, ms by part (CUDA events; "
+        f"computeH = 3 (ifft + coset_fft) + pointwise + coset_ifft + "
+        f"from_mont): {json.dumps(parts)}")
 
 
 def times_k6_k7(put, ladder_sc):
@@ -1218,7 +1422,9 @@ def times_ladder(res, rate, put, ladder_sc, plain_rows=1024):
         check(all(torch.equal(u, v) for u, v in zip(got, want)),
               f"ladder {'G2' if g2 else 'G1'} differs from the per-bit "
               f"K7 + K6 on the setup's scalars")
-        del got, want
+        del want
+        times_affine(res, rate, put, ff, got, g2)
+        del got
         w = table_window(n, nbits)
         tab = -(-nbits // w) * ((1 << w) - 1)
         dbls, adds, tab_adds = ladder_work(sc, nbits, w)
@@ -1239,6 +1445,62 @@ def times_ladder(res, rate, put, ladder_sc, plain_rows=1024):
             f"table at w = {w} ({tab} points, {tab_adds} adds); "
             f"double-and-add {dbl_add:.3f} ms ({dbls} doublings, {adds} "
             f"adds)")
+
+
+def times_affine(res, rate, put, ff, P, g2, plain_rows=1024):
+    """K1's affine kernel on Setup's Jacobian points P (the ladder's
+    output on the setup's scalars), held bit-exact against its plain
+    version, the Fermat chain of plain products, on the first plain_rows
+    (whose time is the plain time). Bound: the chain's operations as the
+    Bound: the least work of the function, as the kernel does it:
+    Montgomery's batch inversion (three products a point and one inverse
+    for the batch) and the affine products, against the bytes of X, Y,
+    Z read and x, y written once. bound_ms_fermat: a Fermat inverse a
+    point (the reference's, the bits of p - 2: squarings and products)
+    and the same affine products. chain_ms: the sequence the kernel
+    replaced, the
+    same chain with each squaring and product one K1 launch over the
+    batch (its words must equal the kernel's on all of P)."""
+    import torch
+    from gnark_tpu_torch.ff.mont_mul import mont_mul
+    from gnark_tpu_torch.msm import fixed_base
+    n, Lw = P[0].shape
+    ms, got = timed(lambda: fixed_base.affine_words(ff, P), 3)
+    sl = tuple(a[:plain_rows] for a in P)
+    pms, want = timed(lambda: fixed_base.affine_words_plain(ff, sl), 1,
+                      warm=False)
+    err = max(max_abs(u[:plain_rows], v) for u, v in zip(got, want))
+    plain_mul = fixed_base.mont_mul_plain
+    fixed_base.mont_mul_plain = mont_mul
+    try:
+        chain_ms, want = timed(lambda: fixed_base.affine_words_plain(ff, P),
+                               1)
+    finally:
+        fixed_base.mont_mul_plain = plain_mul
+    check(all(torch.equal(u, v) for u, v in zip(got, want)),
+          f"affine_words {'G2' if g2 else 'G1'} differs from the K1 chain "
+          f"on the setup's points")
+    del want
+    e = ff.p.modulus - 2
+    M, S = MUL_OPS["mul"], 208
+    chain = (e.bit_length() - 1) * S + (bin(e).count("1") - 1) * M
+    if g2:       # norm 2S, zi 2M; zi^2 an Fp2 S, zi^3, x, y three Fp2 M
+        per = 2 * S + 2 * M + 528 + 3 * 792
+    else:        # zi^2 S; zi^3, x, y 3M
+        per = S + 3 * M
+    sfx = "_g2" if g2 else ""
+    nbytes = n * 5 * Lw * 4
+    # batch inversion: three products a point (the prefix, two back)
+    put("affine_words", sfx, [n, Lw], ms, pms, nbytes,
+        n * (per + 3 * M) + chain, err, plain_shape=[min(plain_rows, n), Lw])
+    b, by = bound_ms(nbytes, n * (per + chain), rate)
+    res["affine_words"].update({"bound_ms_fermat" + sfx: b,
+                                "bound_by_fermat" + sfx: by,
+                                "chain_ms" + sfx: chain_ms})
+    log(f"affine_words {'G2' if g2 else 'G1'} on {n} setup points: "
+        f"{ms:.3f} ms; the K1 chain it replaced {chain_ms:.3f} ms, the "
+        f"same words; a Fermat inverse a point would be bound at {b:.4f} "
+        f"ms ({by})")
 
 
 def k9_work(W, c):
@@ -1391,8 +1653,9 @@ KERNELS = {
     "bucket_msm": ("gnark_tpu_torch/csrc/bucket_msm.cu",
                    "gnark_tpu/msm/bucket_kernel.py:304 _msm_device "
                    "(_accumulate_kernel:200)"),
-    "butterfly": ("gnark_tpu_torch/csrc/butterfly.cu",
-                  "gnark_tpu/ff/pallas_ops.py:66 butterfly_p"),
+    "radix2_ntt": ("gnark_tpu_torch/csrc/butterfly.cu",
+                   "gnark_tpu/ff/pallas_ops.py:66 butterfly_p, now a whole "
+                   "gnark_tpu/ntt/domain.py:53 _ntt_kernel"),
     "jac_add_mixed": ("gnark_tpu_torch/csrc/jac_ec.cu",
                       "gnark_tpu/ec/pallas_ec.py:288 jac_add_mixed_p"),
     "jac_double": ("gnark_tpu_torch/csrc/jac_ec.cu",
@@ -1412,6 +1675,13 @@ KERNELS = {
                          "gnark_tpu/msm/fixed_base.py:27-52 "
                          "batch_scalar_mul's fori_loop runs their formulas "
                          "(XLA, no Pallas kernel)"),
+    "mont_mul_sub_mul": ("gnark_tpu_torch/csrc/mont_mul.cu",
+                         "gnark_tpu/ff/pallas_ops.py:34 mul_p and the XLA "
+                         "ffr.sub at gnark_tpu/backend/groth16.py:437"),
+    "affine_words": ("gnark_tpu_torch/csrc/mont_mul.cu",
+                     "gnark_tpu/ec/weierstrass.py:164 jac_to_affine (XLA "
+                     "f.inv) over gnark_tpu/ff/pallas_ops.py:34 mul_p's "
+                     "product"),
 }
 
 
@@ -1468,6 +1738,7 @@ def main(argv) -> int:
         phase_kernels(rng, res)
         phase_kernels_jac_ntt(rng, res)
         phase_kernels_ladder(rng, res)
+        phase_kernels_affine(rng, res)
         if quick:
             log(json.dumps({"kernels": list(res.values())}))
             log(smi)

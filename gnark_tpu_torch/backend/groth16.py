@@ -42,8 +42,8 @@ from gnark_tpu_torch.cuda import resolve_device
 from gnark_tpu_torch.ec import curves as curves_mod
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ec.fp2 import FF2, get_ff2
-from gnark_tpu_torch.ff import get_ff, on_words
-from gnark_tpu_torch.ff.mont_mul import mont_mul
+from gnark_tpu_torch.ff import get_ff
+from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
 from gnark_tpu_torch.logger import get_logger
 from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul, jac_to_affine
 from gnark_tpu_torch.msm.pippenger import msm_raw
@@ -446,8 +446,7 @@ def _g1_stage_fn(fr_name: str, fp_name: str, N: int, nb_pub: int,
         ac = dom.fft(dom.ifft(av), coset=True)
         bc = dom.fft(dom.ifft(bv), coset=True)
         cc = dom.fft(dom.ifft(cv), coset=True)
-        hval = mont_mul(ffr, on_words(ffr, "sub", mont_mul(ffr, ac, bc), cc),
-                        den_m)
+        hval = mont_mul_sub_mul(ffr, ac, bc, cc, den_m)
         h_plain = mont_mul(ffr, dom.ifft(hval, coset=True), one)
         mark("computeH")
         ar = msm_raw(ffp, g1_a, wire_raw, nbits)

@@ -20,14 +20,6 @@ struct Jac {
   E X, Y, Z;
 };
 
-__device__ __forceinline__ bool is_zero_lazy(const Fp& a, const FieldC& F) {
-  Fp c = canon(a, F);
-  uint32_t acc = 0;
-#pragma unroll
-  for (int i = 0; i < GT_NW; ++i) acc |= c.w[i];
-  return acc == 0;
-}
-
 __device__ __forceinline__ bool is_zero_lazy(const Fp2& a, const FieldC& F) {
   return is_zero_lazy(a.c0, F) && is_zero_lazy(a.c1, F);
 }

@@ -16,6 +16,8 @@
 //   sop2 / sop4   sum of 2 / 4 products, one / two conditional 2p subtracts
 //   add2p, sub2p, neg2p, double2p   on [0, 2p)
 //   canon         < 3p -> [0, p) with two conditional p subtracts
+//   fermat_inv    z^(p-2), in < 2p, out < 2p
+//   is_zero_lazy  a < 2p is 0 mod p
 // Field constants come in a FieldC passed by value as a kernel argument;
 // n0 is -p^-1 mod 2^32 (not the reference's 16-bit constant).
 #pragma once
@@ -263,6 +265,33 @@ __device__ __forceinline__ Fp sqr_lazy(const Fp& a, const FieldC& F) {
   return r;
 }
 
+// z^(p-2) by square-and-multiply over the exponent's bits, most
+// significant first (the reference's FF.inv; 0 -> 0); in < 2p, out < 2p.
+// The exponent comes from F.p, so the branch is the same in every thread.
+// For BN254 (either field): 253 squarings (sqr_lazy) and 109 products.
+__device__ __forceinline__ Fp fermat_inv(const Fp& z, const FieldC& F) {
+  uint32_t e[GT_NW];
+  uint32_t two[GT_NW] = {2};
+  sub_words(e, F.p, two);
+  Fp r = z;
+  bool started = false;
+#pragma unroll
+  for (int w = GT_NW - 1; w >= 0; --w) {
+    const uint32_t ew = e[w];
+#pragma unroll 1
+    for (int b = 31; b >= 0; --b) {
+      const bool bit = (ew >> b) & 1;
+      if (started) {
+        r = sqr_lazy(r, F);
+        if (bit) r = mul_lazy(r, z, F);
+      } else {
+        started = bit;
+      }
+    }
+  }
+  return r;
+}
+
 __device__ __forceinline__ Fp sop2(const Fp& a1, const Fp& b1, const Fp& a2,
                                    const Fp& b2, const FieldC& F) {
   Fp a[2] = {a1, a2};
@@ -321,6 +350,15 @@ __device__ __forceinline__ Fp canon(const Fp& a, const FieldC& F) {
   cond_sub(r.w, top, F.p);
   cond_sub(r.w, top, F.p);
   return r;
+}
+
+// a < 2p is 0 mod p (0 or p itself)
+__device__ __forceinline__ bool is_zero_lazy(const Fp& a, const FieldC& F) {
+  Fp c = canon(a, F);
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) acc |= c.w[i];
+  return acc == 0;
 }
 
 __device__ __forceinline__ void set_zero(Fp& r) {

@@ -1,10 +1,13 @@
-"""K1 mont_mul: elementwise Montgomery product over word tensors.
+"""K1: elementwise Montgomery arithmetic over word tensors.
 
-Counterpart of gnark_tpu.ff.pallas_ops.mul_p and of
+mont_mul is the counterpart of gnark_tpu.ff.pallas_ops.mul_p and of
 gnark_tpu.ntt.fourstep._mid_mul: out[i] = a[i] * b[i] * R^-1, or
-a[i] * b[0] * R^-1 when b holds one element, canonical. Kernel:
-csrc/mont_mul.cu. On a CPU tensor the plain version runs; on a CUDA
-tensor the kernel, or an error.
+a[i] * b[0] * R^-1 when b holds one element, canonical.
+mont_mul_sub_mul fuses computeH's pointwise step, (a*b - c)*d, where the
+reference runs mul_p, an XLA subtract and mul_p. Kernels:
+csrc/mont_mul.cu, which also holds the affine kernel of
+msm/fixed_base.affine_words. On a CPU tensor the plain version runs; on
+a CUDA tensor the kernel, or an error.
 """
 
 from __future__ import annotations
@@ -58,3 +61,52 @@ def mont_mul(ff: FF, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 mont_mul.launches = 0
+
+
+def mont_mul_sub_mul_plain(ff: FF, a, b, c, d):
+    """Plain version of mont_mul_sub_mul over int64 limbs."""
+    c = ff.canon(ff.from_words(c))
+    t = ff.sub(ff.mul(ff.from_words(a), ff.from_words(b)), c)
+    return ff.to_words(ff.mul(t, ff.from_words(d)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sub_fn():
+    return cuda.bind("mont_mul", "gt_mont_mul_sub_mul", 5,
+                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
+def mont_mul_sub_mul(ff: FF, a, b, c, d) -> torch.Tensor:
+    """(a*b - c) * d in Montgomery form: a, b, c (n, nw) int32 words, d
+    the same shape or one element; inputs < 2p. Returns canonical (n, nw)
+    words, in one launch on the card."""
+    n = a.shape[0]
+    d2 = d.reshape(-1, ff.nw)
+    if any(tuple(t.shape) != (n, ff.nw) for t in (a, b, c)) or \
+            d2.shape[0] not in (1, n):
+        raise ValueError(f"mont_mul_sub_mul: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}, "
+                         f"{tuple(d.shape)}")
+    if any(t.device != a.device for t in (b, c, d2)):
+        raise ValueError("mont_mul_sub_mul: operands on different devices")
+    if a.device.type == "cpu":
+        return mont_mul_sub_mul_plain(ff, a, b, c, d2)
+    out = _sub_card(ff, a, b, c, d2)
+    mont_mul_sub_mul.launches += 1
+    return out
+
+
+def _sub_card(ff, a, b, c, d2):
+    n = a.shape[0]
+    consts = cuda.field_consts(ff.p.name)
+    a, b, c, d2 = (cuda.dev_words(t, "mont_mul_sub_mul")
+                   for t in (a, b, c, d2))
+    out = torch.empty_like(a)
+    rc = _sub_fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), d2.data_ptr(),
+                   out.data_ptr(), n, int(d2.shape[0] == 1 and n != 1),
+                   consts.ctypes.data, cuda.stream(a))
+    cuda.check(rc, "mont_mul_sub_mul")
+    return out
+
+
+mont_mul_sub_mul.launches = 0

@@ -57,7 +57,7 @@ def window_bits(n: int, device) -> int:
         return c
     if torch.device(device).type == "cpu":
         return C_BITS
-    return next(c for lim, c in _CARD_C if n <= lim)
+    return next((c for lim, c in _CARD_C if n <= lim), _CARD_C[-1][1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -498,18 +498,33 @@ def _msm_device(ff, points, digits, W: int, c: int):
     return bucket_reduce(ff, b3, P, W, c)
 
 
+# K4's grouping holds a chunk's (window, point) pairs at int32 offsets
+# (csrc/bucket_msm.cu: entries, starts, cursor), so one K4 call takes
+# fewer than MAX_PAIRS of them.
+MAX_PAIRS = (1 << 31) - 1
+
+
+def chunk_plan(n: int, nbits: int, device, chunk: int | None = None):
+    """[(off, end, c)]: the chunks of an MSM of n points and the window
+    width of each. A chunk holds at most `chunk` points (default: all
+    n), halved until its W * points < MAX_PAIRS."""
+    size = chunk or max(n, 1)
+    while size > 1 and digit_count(nbits, window_bits(size, device)) * \
+            size >= MAX_PAIRS:
+        size = -(-size // 2)
+    return [(off, min(off + size, n), window_bits(min(size, n - off), device))
+            for off in range(0, n, size)]
+
+
 def msm_proj(ff, points, scalars, nbits: int, chunk: int | None = None):
-    """Projective MSM result ((1, Lw) words) streamed in chunks of at
-    most `chunk` points (default: all of them in one K4 call; the card's
-    memory holds a 2^20-constraint prove's key and buckets at once); the
-    chunk partials are folded with K3."""
+    """Projective MSM result ((1, Lw) words) streamed in the chunks of
+    chunk_plan (default: all the points in one K4 call, as long as K4's
+    int32 offsets hold them; the card's memory holds a 2^20-constraint
+    prove's key and buckets at once); the chunk partials are folded with
+    K3."""
     x, y, inf = points
-    n = x.shape[0]
-    chunk = chunk or max(n, 1)
     acc = None
-    for off in range(0, n, chunk):
-        end = min(off + chunk, n)
-        c = window_bits(end - off, x.device)
+    for off, end, c in chunk_plan(x.shape[0], nbits, x.device, chunk):
         digits = bucket_digits(scalars[off:end], nbits, c)
         part = _msm_device(ff, (x[off:end], y[off:end], inf[off:end]),
                            digits, digits.shape[0], c)

@@ -10,7 +10,10 @@ the mixed add with the affine operand masked as infinity where the bit
 is 0 (jac_add_mixed returns R there), so no third step is needed. On a
 CUDA tensor the whole ladder is one launch of a kernel that fuses the
 two (csrc/ladder.cu); on a CPU tensor its plain version runs the
-per-bit sequence over the plain K7 and K6.
+per-bit sequence over the plain K7 and K6. The affine conversion of the
+result is one launch of K1's affine kernel (csrc/mont_mul.cu,
+affine_words: batch inversion); its plain version is the Fermat chain
+of plain products over the batch that the reference runs.
 
 Points are (n, Lw) int32 words (Lw = 8 for G1, 16 for flat G2 rows);
 scalars are (n, nw) int32 words of plain (non-Montgomery) integers.
@@ -29,7 +32,7 @@ from gnark_tpu_torch.ec.jac_ec import (jac_add_mixed, jac_add_mixed_plain,
                                        jac_double, jac_double_plain)
 from gnark_tpu_torch.ec.proj_ec import _lw, is_fp2, kernel_field
 from gnark_tpu_torch.ff import on_words
-from gnark_tpu_torch.ff.mont_mul import mont_mul
+from gnark_tpu_torch.ff.mont_mul import mont_mul_plain
 
 
 def jac_infinity_words(ff, n: int, device) -> tuple:
@@ -108,57 +111,101 @@ batch_scalar_mul.launches = 0
 
 
 def _inv(f, z):
-    """z^(p-2) (0 -> 0) by square-and-multiply, every step one K1 call
-    over the whole batch."""
+    """z^(p-2) (0 -> 0) by square-and-multiply, every step one plain
+    product over the whole batch."""
     r = z
     for bit in bin(f.p.modulus - 2)[3:]:
-        r = mont_mul(f, r, r)
+        r = mont_mul_plain(f, r, r)
         if bit == "1":
-            r = mont_mul(f, r, z)
+            r = mont_mul_plain(f, r, z)
     return r
 
 
 def _mul2(f, a, b):
     """Fp2 products (u^2 = -1) of (m, 2, nw) words: the four base
-    products in one K1 call, then c0 = a0 b0 - a1 b1, c1 = a0 b1 + a1 b0."""
+    products at once, then c0 = a0 b0 - a1 b1, c1 = a0 b1 + a1 b0."""
     a0, a1, b0, b1 = a[:, 0], a[:, 1], b[:, 0], b[:, 1]
-    p00, p11, p01, p10 = mont_mul(f, torch.cat([a0, a1, a0, a1]),
-                                  torch.cat([b0, b1, b1, b0])
-                                  ).chunk(4)
+    p00, p11, p01, p10 = mont_mul_plain(f, torch.cat([a0, a1, a0, a1]),
+                                        torch.cat([b0, b1, b1, b0])
+                                        ).chunk(4)
     return torch.stack([on_words(f, "sub", p00, p11),
                         on_words(f, "add", p01, p10)], 1)
 
 
-def jac_to_affine(ff, P):
-    """Jacobian words -> (x, y, inf), canonical; infinity gives x = y = 0.
-
-    Inversion is Fermat's, a chain of K1 products over the batch (for
-    Fp2 through the norm a0^2 + a1^2); the int64 `inv` of the plain
-    field would take about a minute at 4.2M points."""
+def affine_words_plain(ff, P):
+    """Plain version of affine_words: the Fermat chain over the batch,
+    one plain product (and for Fp2 one plain sum, negation or
+    difference) at a time."""
     X, Y, Z = P
     n = Z.shape[0]
-    inf = (Z == 0).all(-1)
     if not is_fp2(ff):
         zi = _inv(ff, Z)
-        zi2 = mont_mul(ff, zi, zi)
-        zi3 = mont_mul(ff, zi2, zi)
-        x, y = mont_mul(ff, torch.cat([X, Y]),
-                        torch.cat([zi2, zi3])).chunk(2)
-        return x, y, inf
-    if ff._nr_small != -1:
-        raise ValueError("jac_to_affine takes Fp2 with u^2 = -1 only")
+        zi2 = mont_mul_plain(ff, zi, zi)
+        zi3 = mont_mul_plain(ff, zi2, zi)
+        return mont_mul_plain(ff, torch.cat([X, Y]),
+                              torch.cat([zi2, zi3])).chunk(2)
     f = ff.base
     X, Y, Z = (a.reshape(n, 2, f.nw) for a in (X, Y, Z))
-    sq = mont_mul(f, Z.transpose(0, 1).reshape(2 * n, f.nw),
-                  Z.transpose(0, 1).reshape(2 * n, f.nw))
+    Zt = Z.transpose(0, 1).reshape(2 * n, f.nw)
+    sq = mont_mul_plain(f, Zt, Zt)
     di = _inv(f, on_words(f, "add", sq[:n], sq[n:]))
-    z0, z1 = mont_mul(f, Z.transpose(0, 1).reshape(2 * n, f.nw),
-                      torch.cat([di, di])).chunk(2)
+    z0, z1 = mont_mul_plain(f, Zt, torch.cat([di, di])).chunk(2)
     zi = torch.stack([z0, on_words(f, "neg", z1)], 1)
     zi2 = _mul2(f, zi, zi)
     zi3 = _mul2(f, zi2, zi)
     x, y = _mul2(f, torch.cat([X, Y]), torch.cat([zi2, zi3])).chunk(2)
-    return x.reshape(n, -1), y.reshape(n, -1), inf
+    return x.reshape(n, -1), y.reshape(n, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _affine_fn():
+    return cuda.bind("mont_mul", "gt_jac_to_affine", 5,
+                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
+def affine_words(ff, P):
+    """Jacobian words (X, Y, Z) (n, Lw), < 2p -> canonical affine words
+    (x, y) = (X / Z^2, Y / Z^3); Z = 0 gives x = y = 0. ff: Fp (G1) or
+    Fp2 with u^2 = -1 (G2). On the card: one launch of K1's affine
+    kernel (Montgomery's batch inversion over each thread's points, one
+    Fermat inverse a thread, and the affine products)."""
+    if len(P) != 3 or P[0].dim() != 2:
+        raise ValueError("affine_words: P must be (X, Y, Z), each (n, Lw)")
+    n = P[0].shape[0]
+    if any(tuple(a.shape) != (n, _lw(ff)) for a in P):
+        raise ValueError(f"affine_words: expected ({n}, {_lw(ff)}) words, "
+                         f"got {[tuple(a.shape) for a in P]}")
+    if any(a.device != P[0].device for a in P):
+        raise ValueError("affine_words: X, Y, Z on different devices")
+    if is_fp2(ff) and ff._nr_small != -1:
+        raise ValueError("affine_words takes Fp2 with u^2 = -1 only")
+    if P[0].device.type == "cpu":
+        return affine_words_plain(ff, P)
+    out = _affine_card(ff, P)
+    affine_words.launches += 1
+    return out
+
+
+def _affine_card(ff, P):
+    n = P[0].shape[0]
+    consts = kernel_field(ff)
+    X, Y, Z = (cuda.dev_words(a, "affine_words") for a in P)
+    x, y = torch.empty_like(X), torch.empty_like(X)
+    rc = _affine_fn()(X.data_ptr(), Y.data_ptr(), Z.data_ptr(), x.data_ptr(),
+                      y.data_ptr(), n, int(is_fp2(ff)), consts.ctypes.data,
+                      cuda.stream(X))
+    cuda.check(rc, "affine_words")
+    return x, y
+
+
+affine_words.launches = 0
+
+
+def jac_to_affine(ff, P):
+    """Jacobian words -> (x, y, inf), canonical; infinity gives x = y = 0
+    (affine_words)."""
+    x, y = affine_words(ff, P)
+    return x, y, (P[2] == 0).all(-1)
 
 
 def batch_scalar_mul_affine(ff, base_affine, nbits: int, scalars):

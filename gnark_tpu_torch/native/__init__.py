@@ -1,7 +1,8 @@
 """Native (C++) witness solver bindings.
 
 Builds the repository's native/solver.cpp on first use (g++ -O3
--shared; cached under gnark_tpu_torch/_build/) and drives it via ctypes. Fields up to 383
+-shared; cached under gnark_tpu_torch/_build/, written under a name of
+its own and renamed into place) and drives it via ctypes. Fields up to 383
 bits are supported via templated 4x64 / 6x64 limb arithmetic —
 BN254/BLS12-381/BLS12-377 fr use 4 limbs, BW6-761 fr (377 bits) uses
 6; anything wider falls back to the Python solver transparently.
@@ -17,6 +18,7 @@ import hashlib
 import os
 import pathlib
 import subprocess
+import threading
 
 import numpy as np
 
@@ -24,22 +26,31 @@ from gnark_tpu_torch.constraint.hints import get_hint
 from gnark_tpu_torch.constraint.solver import Solution, SolverError
 
 _SRC = pathlib.Path(__file__).resolve().parents[2] / "native" / "solver.cpp"
+_BUILD = pathlib.Path(__file__).resolve().parents[1] / "_build"
 _KINDS = {"r1c": 0, "assert": 1, "hint": 2, "scs": 3, "log": 4}
+
+
+def _build() -> pathlib.Path:
+    """The solver library in _BUILD, compiled if it is not there: g++
+    writes a file of its own (process and thread in the name), which is
+    then renamed into place, so a concurrent builder never loads a half
+    written library."""
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    so = _BUILD / f"solver-{tag}.so"
+    if not so.exists():
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+             str(_SRC), "-o", str(tmp)],
+            check=True, capture_output=True)
+        os.replace(tmp, so)
+    return so
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    src = _SRC.read_text()
-    tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-    cache = pathlib.Path(__file__).resolve().parents[1] / "_build"
-    cache.mkdir(parents=True, exist_ok=True)
-    so = cache / f"solver-{tag}.so"
-    if not so.exists():
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-             str(_SRC), "-o", str(so)],
-            check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(_build()))
     lib.gnark_tpu_solve.restype = ctypes.c_int
     return lib
 

@@ -1,10 +1,14 @@
-"""Radix-2 DIT NTT over word tensors, with kernel K5 butterfly.
+"""Radix-2 DIT NTT over word tensors, with kernel K5.
 
 Counterpart of gnark_tpu.ntt.domain._ntt_kernel: a bit-reverse gather,
 then log2 n stages; stage s (m = 2^s, half = m/2) maps each block of m
 elements (e | o) to (e + o*tw | e - o*tw) with tw[j] = w_m^j, w_m = w^(n/m).
-Each stage is one K5 launch (gnark_tpu.ff.pallas_ops.butterfly_p), in
-place on the gathered copy.
+The reference runs each stage as one pallas_call
+(gnark_tpu.ff.pallas_ops.butterfly_p). Here the whole transform is
+`radix2_ntt` (csrc/butterfly.cu): one launch that gathers, and runs the
+first ten stages of each 1,024-point segment in shared memory, and for
+n > 2^10 one launch for each further three stages (two launches up to
+2^13). `butterfly`, one stage in place, stays as a tested helper.
 """
 
 from __future__ import annotations
@@ -12,11 +16,15 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ff import FF
 from gnark_tpu_torch.ntt.fourstep import _powers, bitrev
+
+SEG_LOG = 10                      # stages of gt_ntt_seg, in shared memory
+PASS_MAX = 3                      # stages of one gt_ntt_pass, in registers
 
 
 def stage_twiddles(ff: FF, n: int, w: int) -> list:
@@ -25,6 +33,12 @@ def stage_twiddles(ff: FF, n: int, w: int) -> list:
     k = n.bit_length() - 1
     return [ff.encode_words(_powers(pow(w, n >> s, q), 1 << (s - 1), q))
             for s in range(1, k + 1)]
+
+
+def ntt_launches(n: int) -> int:
+    """K5 launches of one radix2_ntt of n points."""
+    k = n.bit_length() - 1
+    return 1 + -(-max(k - SEG_LOG, 0) // PASS_MAX)
 
 
 def butterfly_plain(ff: FF, y: torch.Tensor, tw: torch.Tensor):
@@ -40,15 +54,22 @@ def butterfly_plain(ff: FF, y: torch.Tensor, tw: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    return cuda.bind("butterfly", "gt_butterfly", 2,
-                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+def _pass_fn():
+    return cuda.bind("butterfly", "gt_ntt_pass", 2,
+                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _seg_fn():
+    return cuda.bind("butterfly", "gt_ntt_seg", 3,
+                     [ctypes.c_int, ctypes.c_void_p])
 
 
 def butterfly(ff: FF, y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """One radix-2 DIT stage in place on y: (n, nw) contiguous words < 2p;
     tw: (half, nw) stage twiddles, n a multiple of 2 * half. Returns y,
-    canonical."""
+    canonical. On the card: one gt_ntt_pass of one stage."""
     n, half = y.shape[0], tw.shape[0]
     lh = half.bit_length() - 1
     if half != 1 << lh or n % (2 * half) or y.shape[1:] != (ff.nw,) or \
@@ -62,8 +83,8 @@ def butterfly(ff: FF, y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
         raise ValueError("butterfly: y must be contiguous and 16-byte "
                          "aligned (it is updated in place)")
     tw = cuda.dev_words(tw, "butterfly tw")
-    rc = _fn()(y.data_ptr(), tw.data_ptr(), n // 2, lh, consts.ctypes.data,
-               cuda.stream(y))
+    rc = _pass_fn()(y.data_ptr(), tw.data_ptr(), n, lh, 1, half,
+                    consts.ctypes.data, cuda.stream(y))
     cuda.check(rc, "butterfly")
     butterfly.launches += 1
     return y
@@ -72,19 +93,69 @@ def butterfly(ff: FF, y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
 butterfly.launches = 0
 
 
+def _stage(tw: torch.Tensor, s: int) -> torch.Tensor:
+    """Stage s's rows of the end-to-end twiddle table."""
+    return tw[(1 << (s - 1)) - 1:(1 << s) - 1]
+
+
+def radix2_ntt_plain(ff: FF, x: torch.Tensor, tw: torch.Tensor):
+    """Plain version of radix2_ntt: the bit-reverse gather, then
+    butterfly_plain over every stage."""
+    n = x.shape[0]
+    y = x.index_select(0, torch.as_tensor(bitrev(n), device=x.device))
+    for s in range(1, n.bit_length()):
+        butterfly_plain(ff, y, _stage(tw, s))
+    return y
+
+
+def radix2_ntt(ff: FF, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """DFT of x in natural order: x (n, nw) words < 2p, n = 2^k >= 2; tw
+    (n - 1, nw): the stage twiddles (stage_twiddles) end to end. Returns
+    a new (n, nw) tensor, canonical; x is not written."""
+    n = x.shape[0]
+    k = n.bit_length() - 1
+    if n < 2 or n != 1 << k or x.shape[1:] != (ff.nw,) or \
+            tuple(tw.shape) != (n - 1, ff.nw):
+        raise ValueError(f"radix2_ntt: bad shapes x {tuple(x.shape)}, "
+                         f"tw {tuple(tw.shape)}")
+    if x.device.type == "cpu":
+        return radix2_ntt_plain(ff, x, tw)
+    return _ntt_card(ff, x, tw)
+
+
+def _ntt_card(ff, x, tw):
+    n = x.shape[0]
+    k = n.bit_length() - 1
+    consts = cuda.field_consts(ff.p.name)
+    x = cuda.dev_words(x, "radix2_ntt x")
+    tw = cuda.dev_words(tw, "radix2_ntt tw")
+    y = torch.empty_like(x)
+    st = cuda.stream(x)
+    cuda.check(_seg_fn()(x.data_ptr(), y.data_ptr(), tw.data_ptr(), k,
+                         consts.ctypes.data, st), "radix2_ntt seg")
+    radix2_ntt.launches += 1
+    s0 = min(k, SEG_LOG)
+    while s0 < k:
+        r = min(PASS_MAX, k - s0)
+        cuda.check(_pass_fn()(y.data_ptr(), tw.data_ptr(), n, s0, r, 1,
+                              consts.ctypes.data, st), "radix2_ntt pass")
+        radix2_ntt.launches += 1
+        s0 += r
+    return y
+
+
+radix2_ntt.launches = 0
+
+
 class Radix2:
     """Precomputed radix-2 plan for one (field, n, omega) triple."""
 
     def __init__(self, ff: FF, n: int, w: int, device):
         self.ff = ff
         self.n = n
-        self.rev = torch.as_tensor(bitrev(n), device=device)
-        self.tw = [torch.as_tensor(t, device=device)
-                   for t in stage_twiddles(ff, n, w)]
+        self.tw = torch.as_tensor(np.concatenate(stage_twiddles(ff, n, w)),
+                                  device=device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x: (n, nw) words -> DFT in natural order, canonical."""
-        y = x.index_select(0, self.rev)
-        for tw in self.tw:
-            butterfly(self.ff, y, tw)
-        return y
+        return radix2_ntt(self.ff, x, self.tw)

@@ -1,6 +1,8 @@
-"""The CUDA kernels K1-K9 and the fixed-base ladder against their plain
-PyTorch versions, and the scan-path MSM against the bucket path, on the
-card. Every test here needs an NVIDIA GPU and skips without one.
+"""The CUDA kernels K1-K9 (K1 with its fused (a*b - c)*d and affine
+entry points, K5 as whole transforms) and the fixed-base ladder against
+their plain PyTorch versions, the scan-path MSM against the bucket path,
+and a chunked bucket MSM against the single-shot one, on the card.
+Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor gnark_tpu, so it also runs where JAX
 is not installed (tests/conftest.py imports jax, hence --noconftest):
@@ -14,6 +16,7 @@ differs, so the representatives do)."""
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,12 +29,16 @@ from gnark_tpu_torch.ec.jac_ec import (jac_add, jac_add_mixed,
 from gnark_tpu_torch.ec.proj_ec import (_limbs, proj_add, proj_add_plain,
                                         proj_double, proj_double_plain)
 from gnark_tpu_torch.ff import get_ff
-from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
+from gnark_tpu_torch.ff.mont_mul import (mont_mul, mont_mul_plain,
+                                         mont_mul_sub_mul,
+                                         mont_mul_sub_mul_plain)
+from gnark_tpu_torch.msm import bucket as bucket_mod
 from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                         bucket_msm_plain, bucket_reduce,
                                         bucket_reduce_plain, curve_b3,
                                         curve_b3_g2, signed_digits)
-from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
+from gnark_tpu_torch.msm.fixed_base import (affine_words, affine_words_plain,
+                                            batch_scalar_mul,
                                             batch_scalar_mul_affine,
                                             batch_scalar_mul_plain)
 from gnark_tpu_torch.msm.pippenger import msm_raw, scalar_limbs
@@ -39,7 +46,8 @@ from gnark_tpu_torch.ntt import Domain
 from gnark_tpu_torch.ntt.fourstep import dif_stage_tw, row_fft, \
     row_fft_plain
 from gnark_tpu_torch.ntt.radix2 import (butterfly, butterfly_plain,
-                                        stage_twiddles)
+                                        ntt_launches, radix2_ntt,
+                                        radix2_ntt_plain, stage_twiddles)
 
 CURVE = curves.CURVES["bn254"]
 pytestmark = pytest.mark.cuda
@@ -73,6 +81,102 @@ def test_mont_mul(dev, name):
     a, b = _words(f, 4093, 1, dev), _words(f, 4093, 2, dev)
     for bb in (b, b[:1]):
         assert torch.equal(mont_mul(f, a, bb), mont_mul_plain(f, a, bb))
+
+
+@pytest.mark.parametrize("name", ["bn254_fp", "bn254_fr"])
+def test_mont_mul_sub_mul(dev, name):
+    f = get_ff(name)
+    a, b, c, d = (_words(f, 4093, s, dev) for s in range(4))
+    for dd in (d, d[:1]):
+        assert torch.equal(mont_mul_sub_mul(f, a, b, c, dd),
+                           mont_mul_sub_mul_plain(f, a, b, c, dd))
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_affine_words(dev, g2):
+    """K1's affine kernel against the plain Fermat chain on 509 Jacobian
+    points (infinity, Z = 1, X in [p, 2p), random Z), bit-exact, and on
+    them tiled 1024 times; the edge rows against the host."""
+    ff, hf, _, gen = _group(g2)
+    rng = random.Random(14)
+    base = [gen]
+    for _ in range(15):
+        base.append(host.ec_add(hf, base[-1], gen))
+    pts = [base[rng.randrange(16)] for _ in range(509)]
+    pts[0] = host.INF
+    X, Y, Z = _jac_words(ff, hf, pts, rng, dev, 40)
+    X[1], Y[1] = (torch.as_tensor(ff.encode_words([pts[1][i]]), device=dev)
+                  .reshape(-1) for i in (0, 1))
+    Z[1] = torch.as_tensor(ff.encode_words([(1, 0) if g2 else 1]),
+                           device=dev).reshape(-1)
+    got = affine_words(ff, (X, Y, Z))
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, affine_words_plain(ff, (X, Y, Z))))
+    # tiled past the kernel's threads: each batch inversion spans points
+    big = affine_words(ff, tuple(a.repeat(1024, 1) for a in (X, Y, Z)))
+    assert all(torch.equal(u, v.repeat(1024, 1)) for u, v in zip(big, got))
+    assert int(got[0][0].abs().sum() + got[1][0].abs().sum()) == 0
+    shp = (-1, 2, 8) if g2 else (-1, 8)
+    for i in range(1, 8):
+        xs, ys = (ff.decode_words(a[i:i + 1].reshape(shp).cpu())
+                  for a in got)
+        pt = (tuple(int(c) for c in xs[0]), tuple(int(c) for c in ys[0])) \
+            if g2 else (int(xs[0]), int(ys[0]))
+        assert pt == pts[i]
+
+
+def test_radix2_ntt(dev):
+    """Whole K5 transforms at every n from 2^1 to 2^13 (a third of the
+    inputs in [p, 2p)), forward and inverse, bit-exact against the plain
+    transform, in at most two launches each."""
+    f = get_ff("bn254_fr")
+    q = f.p.modulus
+    rng = random.Random(15)
+    for k in range(1, 14):
+        n = 1 << k
+        vals = [rng.randrange(q) for _ in range(n)]
+        vals = [v + q if i % 3 == 0 else v for i, v in enumerate(vals)]
+        x = torch.frombuffer(bytearray(b"".join(
+            v.to_bytes(32, "little") for v in vals)), dtype=torch.int32) \
+            .reshape(n, 8).to(dev)
+        w = f.p.root_of_unity(n)
+        for ww in (w, pow(w, -1, q)):
+            tw = torch.as_tensor(np.concatenate(stage_twiddles(f, n, ww)),
+                                 device=dev)
+            before = radix2_ntt.launches
+            got = radix2_ntt(f, x, tw)
+            assert radix2_ntt.launches - before == ntt_launches(n) <= 2
+            assert torch.equal(got, radix2_ntt_plain(f, x, tw))
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_chunked_msm_matches_single(dev, g2, monkeypatch):
+    """K4's int32 offsets cap a chunk's (window, point) pairs at
+    msm/bucket.MAX_PAIRS; with the cap forced down, a 600-point MSM
+    runs in chunks (folded by K3) and equals the single-shot MSM."""
+    ff, hf, _, gen = _group(g2)
+    rng = random.Random(16)
+    base = [gen]
+    for _ in range(31):
+        base.append(host.ec_add(hf, base[-1], gen))
+    n = 600
+    pts = [base[rng.randrange(32)] for _ in range(n)]
+    x, y = (torch.as_tensor(ff.encode_words([p[i] for p in pts]),
+                            device=dev).reshape(n, -1) for i in (0, 1))
+    inf = torch.zeros(n, dtype=torch.bool, device=dev)
+    inf[3:6] = True
+    ks = [rng.randrange(CURVE.fr.modulus) for _ in range(n)]
+    sc = torch.as_tensor(get_ff(CURVE.fr.name).encode_words(ks, mont=False),
+                         device=dev)
+    one = bucket_mod.msm_proj(ff, (x, y, inf), sc, CURVE.fr.bits)
+    monkeypatch.setattr(bucket_mod, "MAX_PAIRS", 6000)
+    plan = bucket_mod.chunk_plan(n, CURVE.fr.bits, dev)
+    assert len(plan) > 1
+    before = bucket_msm.launches
+    chunked = bucket_mod.msm_proj(ff, (x, y, inf), sc, CURVE.fr.bits)
+    assert bucket_msm.launches - before == len(plan)
+    assert _to_affine_host(ff, hf, "proj", chunked) == \
+        _to_affine_host(ff, hf, "proj", one) != host.INF
 
 
 def test_row_fft_and_fourstep(dev, monkeypatch):

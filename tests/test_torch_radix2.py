@@ -1,8 +1,13 @@
-"""Kernel K5 butterfly's plain version: one radix-2 DIT stage against
-the stage written out with host ints (inputs in [p, 2p) included), and
-against the reference's butterfly_p run in Pallas interpret mode (slow
-tier: it compiles the interpret-mode kernel). Tolerance: exact equality
-(canonical Montgomery words)."""
+"""Kernel K5 on the CPU: its one-stage helper butterfly's plain version
+against the stage written out with host ints (inputs in [p, 2p)
+included) and against the reference's butterfly_p run in Pallas
+interpret mode (slow tier: it compiles the interpret-mode kernel); the
+whole transform radix2_ntt's plain version against a DFT over host ints
+(the Domain's transforms against the reference's radix-2 plan, coset
+included, are tests/test_torch_ntt.py's); and, with the kernel binding
+stubbed (meta tensors stand in for CUDA ones), the launches of a whole
+transform: at most two up to 2^13. Tolerance: exact equality (canonical
+Montgomery words)."""
 
 import random
 
@@ -14,7 +19,10 @@ import torch
 from gnark_tpu import config
 from gnark_tpu.ff import get_ff as ref_get_ff
 from gnark_tpu_torch.ff import get_ff
-from gnark_tpu_torch.ntt.radix2 import butterfly, stage_twiddles
+from gnark_tpu_torch import cuda
+from gnark_tpu_torch.ntt import radix2
+from gnark_tpu_torch.ntt.radix2 import (Radix2, butterfly, ntt_launches,
+                                        radix2_ntt, stage_twiddles)
 
 torch.set_num_threads(2)
 
@@ -88,3 +96,62 @@ def test_butterfly_plain_matches_reference_kernel(s, pallas_on):
                            np.asarray(od).reshape(-1, half, f.n)], axis=1)
     got = f.from_words(butterfly(f, y, tw)).numpy()
     assert np.array_equal(got, want.reshape(n, f.n).astype(np.int64))
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_radix2_ntt_plain_matches_dft(k):
+    """Forward and inverse, a quarter of the inputs in [p, 2p)."""
+    f = get_ff(FR)
+    q = f.p.modulus
+    n = 1 << k
+    rng = random.Random(20 + k)
+    vals = [rng.randrange(q) for _ in range(n)]
+    mont = [v * f.p.R_mod % q for v in vals]
+    x = torch.as_tensor(f.encode_words(mont, mont=False))
+    for i in range(0, n, 4):               # encode_words would reduce v + q
+        lazy = (mont[i] + q).to_bytes(32, "little")
+        x[i] = torch.frombuffer(bytearray(lazy), dtype=torch.int32)
+    w = f.p.root_of_unity(n)
+    for ww in (w, pow(w, -1, q)):
+        tw = torch.as_tensor(np.concatenate(stage_twiddles(f, n, ww)))
+        got = [int(v) for v in f.decode_words(radix2_ntt(f, x, tw))]
+        assert got == [sum(v * pow(ww, i * j, q) for j, v in enumerate(vals))
+                       % q for i in range(n)]
+
+
+class _Kernel:
+    """Stands in for a ctypes kernel entry point: records the calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_radix2_plan_launches(k, monkeypatch):
+    """A Radix2 plan on a card's tensor launches the shared-memory kernel
+    once (the first min(k, 10) stages) and one register pass for each
+    further three stages: at most two launches up to 2^13."""
+    monkeypatch.setattr(cuda, "dev_words", lambda t, what, shape=None: t)
+    monkeypatch.setattr(cuda, "stream", lambda t: 0)
+    seg, pas = _Kernel(), _Kernel()
+    monkeypatch.setattr(radix2, "_seg_fn", lambda: seg)
+    monkeypatch.setattr(radix2, "_pass_fn", lambda: pas)
+    f = get_ff(FR)
+    n = 1 << k
+    plan = Radix2.__new__(Radix2)
+    plan.ff, plan.n = f, n
+    plan.tw = torch.empty((n - 1, 8), dtype=torch.int32, device="meta")
+    before = radix2_ntt.launches
+    y = plan(torch.empty((n, 8), dtype=torch.int32, device="meta"))
+    assert y.shape == (n, 8)
+    launches = radix2_ntt.launches - before
+    assert launches == ntt_launches(n) == 1 + len(pas.calls)
+    assert launches <= 2 or n > 1 << 13
+    assert [c[3] for c in seg.calls] == [k]
+    stages = [(c[3], c[4]) for c in pas.calls]      # (s0, r) of each pass
+    assert sum(r for _, r in stages) == max(k - 10, 0)
+    assert all(s0 == min(k, 10) + 3 * i for i, (s0, _) in enumerate(stages))
