@@ -9,7 +9,11 @@ Phases (any failure exits non-zero):
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, mont_mul_sub_mul ((a*b - c)*d, broadcast d) and
      affine_words (Jacobian -> affine in G1 and G2: infinity, Z = 1, Z in
-     [p, 2p)), K2 row_fft (and whole four-step transforms), K3
+     [p, 2p)), K2 row_fft (rows of 2^9 to 2^13: the last past a block's
+     shared memory) and whole four-step transforms (fourstep_ntt: two
+     launches with the coset / n^-1 scalings and the mid twiddle inside,
+     at 2^11-2^13, and with global passes at a lowered cap; the
+     segment block's shared-memory size against the host's copy), K3
      proj_add / proj_double, K4 bucket_msm (at c = 8 and at the main
      path's width; its digit kernel at every width) and K9
      bucket_reduce (on K4's sums, all buckets empty, one bucket a
@@ -17,17 +21,19 @@ Phases (any failure exits non-zero):
      and G2 with edge cases; K5 radix2_ntt (whole transforms at every n
      from 2^1 to 2^13, forward and inverse, in at most two launches; its
      one-stage helper on every stage of 2^13), K6 jac_add_mixed / K7
-     jac_double (G2 on lane pairs) / K8 jac_add in G1 and G2 with edge
-     cases, and the fused fixed-base ladder at 254 bits on the scalars
+     jac_double / K8 jac_add (G2 on lane pairs) in G1 and G2 with edge
+     cases, K8's group fold jac_fold against its twin, the halving tree
+     and the host, and the fused fixed-base ladder at 254 bits on the scalars
      that take the complete add's branches (0, 1, r - 1, r, r + 2);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
-     at all, each computeH mont_mul_sub_mul once; the five MSMs are
+     at all, each computeH mont_mul_sub_mul once, 14 K2 launches (seven
+     transforms) and 4 K1; the five MSMs are
      checked against one host scalar multiplication each, and H by
      Schwartz-Zippel at a random point;
      then the first prove again with GNARK_TPU_MSM_IMPL=scan (the
-     scan-path MSM: K6, K8, K7, no K4 or K9): the same proof, and the
+     scan-path MSM: K6, jac_fold, K8, K7, no K4 or K9): the same proof, and the
      five MSMs again against their known values;
   5. the setup -> prove -> verify path, in three configurations:
      g16_20 (Setup at 2^20: one ladder launch and one affine_words
@@ -49,19 +55,26 @@ Phases (any failure exits non-zero):
      per-bit K7 + K6 sequence on all, both timed; affine_words on the
      ladder's output, bit-exact against the plain chain on the first
      1,024; mont_mul_sub_mul at 2^20 with computeH timed part by part;
-     one whole 2^13 K5 transform); its launches during its path, its
-     time, its bound and its plain version's time, as one JSON line;
-     the whole bucket MSM at
-     each window width of SWEEP_C on those columns and their first 2^16
-     and 2^13 points (one group element at every width); then the card's
-     name and power limit, and the device as the last line.
+     a whole 2^20 K2 transform, coset FFT and iFFT, beside the row_fft +
+     K1 + transpose + gather sequence it replaced (on the current row
+     kernel); K8 at the widest
+     halving step the group fold had and jac_fold at that wire MSM's
+     fold, beside the halving tree; one whole 2^13 K5 transform; a 2^25
+     domain's ifft(fft(x)) == x, plain and coset); its launches during
+     its path, its time, its bound and its plain version's time, as one
+     JSON line; the whole bucket MSM at each window width of SWEEP_C on
+     those columns and their first 2^16 and 2^13 points (one group
+     element at every width); then the card's name and power limit, and
+     the device as the last line.
 
-Option: --quick stops after phase 3.
+Option: --quick stops after phase 3, with phase 6's four-step
+transform and K8 / jac_fold timings.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import random
@@ -199,6 +212,7 @@ def max_abs(a, b):
 
 def phase_kernels(rng, res):
     import torch
+    from gnark_tpu_torch import cuda
     from gnark_tpu_torch.backend.groth16 import _to_affine_host
     from gnark_tpu_torch.ec import curves, host
     from gnark_tpu_torch.ec.fp2 import get_ff2
@@ -214,9 +228,9 @@ def phase_kernels(rng, res):
                                             bucket_reduce_plain, curve_b3,
                                             curve_b3_g2, signed_digits)
     from gnark_tpu_torch.msm.pippenger import scalar_limbs
-    from gnark_tpu_torch.ntt import Domain
-    from gnark_tpu_torch.ntt.fourstep import dif_stage_tw, row_fft, \
-        row_fft_plain
+    from gnark_tpu_torch.ntt import Domain, fourstep
+    from gnark_tpu_torch.ntt.fourstep import (fourstep_ntt, root_powers,
+                                              row_fft, row_fft_plain)
 
     fr = get_ff("bn254_fr")
     fp = get_ff("bn254_fp")
@@ -247,26 +261,49 @@ def phase_kernels(rng, res):
     res["mont_mul_sub_mul"]["max_abs_err"] = err
     log("K1 mont_mul_sub_mul: (65536, 8) x3 x (65536|1, 8) fr+fp bit-exact")
 
-    # K2: rows of 2^10 and 2^9
+    # K2: its per-row entry on rows of 2^10, 2^9 and 2^12 (the cap, 256
+    # threads a block) and 2^13 (a global pass, then two segments)
     err = 0
-    for S in (1 << 10, 1 << 9):
-        x = rand_words(fr, 8 * S, rng).reshape(8, S, 8)
-        tw = torch.as_tensor(dif_stage_tw(fr, S, fr.p.root_of_unity(S)),
+    for S in (1 << 10, 1 << 9, 1 << 12, 1 << 13):
+        x = rand_words(fr, 8 * S, rng, lazy=S).reshape(8, S, 8)
+        pw = torch.as_tensor(root_powers(fr, S, fr.p.root_of_unity(S)),
                              device=DEV)
-        got, want = row_fft(fr, x, tw), row_fft_plain(fr, x, tw)
+        got, want = row_fft(fr, x, pw), row_fft_plain(fr, x, pw)
         check(torch.equal(got, want), f"K2 row_fft S={S}")
         err = max(err, max_abs(got, want))
         log(f"K2 row_fft: (8, {S}, 8) bit-exact "
-            f"{cuda_ms(lambda: row_fft(fr, x, tw)):.4f} ms")
-    # whole four-step 2^12 transforms against the plain four-step (the
-    # threshold forced down: 2^12 takes the radix-2 plan by default)
-    n = 1 << 12
-    with fourstep_log(12):
-        err = max(err, transforms_err(Domain(fr, n, DEV),
-                                      Domain(fr, n, "cpu"),
-                                      rand_words(fr, n, rng), "four-step"))
+            f"{cuda_ms(lambda: row_fft(fr, x, pw)):.4f} ms")
     res["row_fft"]["max_abs_err"] = err
-    log("K2 four-step 2^12 fft/ifft/coset fft/coset ifft bit-exact")
+    # the host's copy of the segment block's shared-memory size (which
+    # row_plan's fault test reads) against the kernel's own formula
+    smem = cuda.lib("row_fft").gt_fs_smem
+    smem.restype = ctypes.c_longlong
+    for G in range(1, fourstep.SMEM_LOG + 1):
+        check(smem(G) == fourstep.seg_smem_bytes(G), f"K2 shared memory "
+              f"at 2^{G}: kernel {smem(G)}, host {fourstep.seg_smem_bytes(G)}")
+    # whole four-step transforms (two launches each, the scalings inside)
+    # against the plain four-step sequence, at 2^12 and 2^13 (the
+    # threshold forced down: they take the radix-2 plan by default), and
+    # with the shared-memory cap lowered to 2^3 and 2^4 so that every row
+    # runs global passes first
+    err = 0
+    for k, cap in ((12, None), (13, None), (12, 3), (11, 4)):
+        n = 1 << k
+        with fourstep_log(k), k2_cap(cap):
+            dg = Domain(fr, n, DEV)
+            passes = sum(len(rp[0]) for rp in dg._plan(False).rplan)
+            before = fourstep_ntt.launches
+            err = max(err, transforms_err(dg, Domain(fr, n, "cpu"),
+                                          rand_words(fr, n, rng, lazy=n // 3),
+                                          "four-step"))
+            launched = fourstep_ntt.launches - before
+        check(launched == 4 * (2 + passes) and (cap is None) == (passes == 0),
+              f"K2 four-step 2^{k} cap {cap}: {launched} launches for 4 "
+              f"transforms with {passes} global passes")
+        log(f"K2 four-step 2^{k} (cap {cap or fourstep.SMEM_LOG}): fft/ifft/"
+            f"coset fft/coset ifft bit-exact, {launched // 4} launches a "
+            f"transform ({passes} global passes)")
+    res["fourstep_ntt"]["max_abs_err"] = err
 
     # K3 and K4 in G1 and G2
     c = curves.CURVES["bn254"]
@@ -429,29 +466,44 @@ def fourstep_log(k):
     return setenv("GNARK_TPU_NTT_FOURSTEP_LOG", str(k))
 
 
+@contextlib.contextmanager
+def k2_cap(cap=None):
+    """Inside the block, four-step plans made there hold row segments of
+    at most 2^cap points in shared memory (None: the module's value)."""
+    from gnark_tpu_torch.ntt import fourstep
+    old = fourstep.SMEM_LOG
+    fourstep.SMEM_LOG = cap or old
+    try:
+        yield
+    finally:
+        fourstep.SMEM_LOG = old
+
+
 def scan_msm():
     """Every MSM takes the scan path (K6, K8, K7) inside the block."""
     return setenv("GNARK_TPU_MSM_IMPL", "scan")
 
 
 def all_wrappers():
-    from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_mixed, jac_double
+    from gnark_tpu_torch.ec.jac_ec import (jac_add, jac_add_mixed, jac_double,
+                                           jac_fold)
     from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
     from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_reduce)
     from gnark_tpu_torch.msm.fixed_base import affine_words, batch_scalar_mul
-    from gnark_tpu_torch.ntt.fourstep import row_fft
+    from gnark_tpu_torch.ntt.fourstep import fourstep_ntt, row_fft
     from gnark_tpu_torch.ntt.radix2 import butterfly, radix2_ntt
     return (mont_mul, row_fft, proj_add, proj_double, bucket_msm, radix2_ntt,
             jac_add_mixed, jac_double, jac_add, bucket_reduce, bucket_digits,
-            batch_scalar_mul, mont_mul_sub_mul, affine_words, butterfly)
+            batch_scalar_mul, mont_mul_sub_mul, affine_words, butterfly,
+            fourstep_ntt, jac_fold)
 
 
 def scan_prove(what, fn):
     """fn() under GNARK_TPU_MSM_IMPL=scan with every launch count set to
-    0 first; K6, K7 and K8 must launch and K4 must not. Returns (fn's
-    result, the launch counts)."""
+    0 first; K6, K7, K8 and its group fold must launch and K4 must not.
+    Returns (fn's result, the launch counts)."""
     wrappers = all_wrappers()
     for wr in wrappers:
         wr.launches = 0
@@ -459,7 +511,7 @@ def scan_prove(what, fn):
         out = fn()
     launches = {wr.__name__: wr.launches for wr in wrappers}
     log(f"launches during the {what} scan-path prove: {json.dumps(launches)}")
-    for k in ("jac_add", "jac_add_mixed", "jac_double"):
+    for k in ("jac_add", "jac_add_mixed", "jac_double", "jac_fold"):
         check(launches[k] > 0, f"{what} scan path: {k} was not launched")
     for k in ("bucket_msm", "bucket_reduce", "bucket_digits"):
         check(launches[k] == 0, f"{what} scan path launched {k}")
@@ -539,7 +591,8 @@ def phase_kernels_jac_ntt(rng, res):
         f"bit-exact")
 
     c = curves.CURVES["bn254"]
-    errs = {"jac_add_mixed": 0, "jac_double": 0, "jac_add": 0}
+    errs = {"jac_add_mixed": 0, "jac_double": 0, "jac_add": 0,
+            "jac_fold": 0}
     for g2 in (False, True):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
         hf = c.host_g2_field if g2 else c.host_fp
@@ -600,11 +653,61 @@ def phase_kernels_jac_ntt(rng, res):
         for i in range(8):
             check(jac_to_host(ff, hf, got, i) == host.ec_add(hf, P[i], Q[i]),
                   f"jac_add {tag} vs host at {i}")
-        log(f"K8 jac_add {tag}: ({m}, {Pw[0].shape[1]}) bit-exact, "
-            f"host-checked; "
+        log(f"K8 jac_add {tag}{' on lane pairs' if g2 else ''}: "
+            f"({m}, {Pw[0].shape[1]}) bit-exact, host-checked; "
             f"{cuda_ms(lambda: jac_add(ff, Pw, Qw)):.4f} ms")
+        errs["jac_fold"] = max(errs["jac_fold"],
+                               fold_check(ff, hf, base, rng, g2))
     for k, v in errs.items():
         res[k]["max_abs_err"] = v
+
+
+def fold_check(ff, hf, base, rng, g2, W=3, G=16, B=131):
+    """jac_fold on curve points against its plain twin (bit-exact), the
+    halving tree of K8 it replaced (the same points) and the host's sums
+    (sampled columns): a column of equal points (the doubling branch), one
+    of P and -P, one all at infinity, X in [p, 2p)."""
+    import torch
+    from gnark_tpu_torch.backend.groth16 import _to_affine_host
+    from gnark_tpu_torch.ec import host
+    from gnark_tpu_torch.ec.jac_ec import jac_add, jac_fold, jac_fold_plain
+    pts = [base[rng.randrange(64)] for _ in range(W * G * B)]
+
+    def row(w, g, b):
+        return (w * G + g) * B + b
+
+    for g in range(G):
+        pts[row(0, g, 1)] = base[3]
+        pts[row(2, g, 5)] = host.INF
+    pts[row(1, 0, 2)], pts[row(1, 1, 2)] = base[9], host.ec_neg(hf, base[9])
+    P = point_words(ff, hf, pts, rng, g2, 300, jacobian=True)
+    got, want = jac_fold(ff, P, G, B), jac_fold_plain(ff, P, G, B)
+    check(all(torch.equal(u, v) for u, v in zip(got, want)),
+          f"jac_fold {'G2' if g2 else 'G1'}")
+    err = max(max_abs(u, v) for u, v in zip(got, want))
+    Lw = P[0].shape[1]
+    T = torch.stack(P).reshape(3, W, G, B, Lw)
+    g = G
+    while g > 1:
+        h = g // 2
+        R = jac_add(ff, tuple(a.reshape(-1, Lw) for a in T[:, :, :h]),
+                    tuple(a.reshape(-1, Lw) for a in T[:, :, h:g]))
+        T = torch.stack(R).reshape(3, W, h, B, Lw)
+        g = h
+    for w, b in [(0, 1), (1, 2), (2, 5), (2, B - 1)] + \
+            [(rng.randrange(W), rng.randrange(B)) for _ in range(12)]:
+        want = host.INF
+        for gg in range(G):
+            want = host.ec_add(hf, want, pts[row(w, gg, b)])
+        i = w * B + b
+        check(jac_to_host(ff, hf, got, i) == want == _to_affine_host(
+            ff, hf, "jac", tuple(a[w, 0, b][None] for a in T)),
+            f"jac_fold {'G2' if g2 else 'G1'} column ({w}, {b})")
+    log(f"jac_fold {'G2 on lane pairs' if g2 else 'G1'}: W = {W}, G = {G}, "
+        f"B = {B} bit-exact against its plain twin; 16 columns equal to the "
+        f"halving tree of K8 and the host's sums (equal points, P and -P, "
+        f"all at infinity)")
+    return err
 
 
 LADDER_ROWS = 1024
@@ -789,7 +892,7 @@ def phase_main(res):
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_reduce)
     from gnark_tpu_torch.ntt import get_domain
-    from gnark_tpu_torch.ntt.fourstep import row_fft
+    from gnark_tpu_torch.ntt.fourstep import fourstep_ntt, row_fft
 
     t = time.perf_counter()
     cs = synth_square_chain(N_CHAINS, CHAIN_LEN)
@@ -808,8 +911,8 @@ def phase_main(res):
     log(f"main path: domain tables and solver load in "
         f"{time.perf_counter() - t:.2f} s")
 
-    wrappers = (mont_mul, mont_mul_sub_mul, row_fft, proj_add, proj_double,
-                bucket_digits, bucket_msm, bucket_reduce)
+    wrappers = (mont_mul, mont_mul_sub_mul, fourstep_ntt, row_fft, proj_add,
+                proj_double, bucket_digits, bucket_msm, bucket_reduce)
     for wr in wrappers:
         wr.launches = 0
     proofs = []
@@ -832,6 +935,9 @@ def phase_main(res):
         if k in ("proj_add", "proj_double"):
             check(v == 0, f"K3 {k} was launched {v} times on the main path "
                   f"(the epilogue is K9's)")
+        elif k == "row_fft":
+            check(v == 0, f"row_fft was launched {v} times on the main path "
+                  f"(its transforms are fourstep_ntt's)")
         else:
             check(v > 0, f"kernel {k} was not launched on the main path")
     for k in ("bucket_digits", "bucket_msm", "bucket_reduce"):
@@ -839,6 +945,12 @@ def phase_main(res):
               f"3 proves, not once for each of the 5 MSMs")
     check(launches["mont_mul_sub_mul"] == 3, "mont_mul_sub_mul launched "
           f"{launches['mont_mul_sub_mul']} times in 3 proves, not once each")
+    # seven transforms a computeH, two K2 launches each, the scalings and
+    # the mid twiddle inside them; K1 only for the three to-Montgomery
+    # products and the one from Montgomery form
+    check(launches["fourstep_ntt"] == 3 * 14 and launches["mont_mul"] == 3 * 4,
+          f"3 proves launched K2 {launches['fourstep_ntt']} times (not 42) "
+          f"and K1 {launches['mont_mul']} times (not 12)")
     t = time.perf_counter()
     try:
         check_prove(cs, pk, [], [j + 2 for j in range(N_CHAINS)],
@@ -870,7 +982,7 @@ def phase_scan(res, cs, pk, want):
     log(f"g16_20 scan-path prove (s): {fmt_times(tm)}")
     check(proof == want, "g16_20: the scan-path proof differs from the "
           "bucket-path proof under the same rng")
-    for k in ("jac_add", "jac_add_mixed", "jac_double"):
+    for k in ("jac_add", "jac_add_mixed", "jac_double", "jac_fold"):
         res[k]["launches"] = launches[k]
     log("g16_20 scan-path proof == bucket-path proof")
     t = time.perf_counter()
@@ -1005,7 +1117,7 @@ def phase_merkle(res):
     from gnark_tpu_torch.backend.groth16_check import (Membership,
                                                        membership_assignment)
     from gnark_tpu_torch.frontend import compile_circuit, witness
-    from gnark_tpu_torch.ntt.fourstep import row_fft
+    from gnark_tpu_torch.ntt.fourstep import fourstep_ntt
     from gnark_tpu_torch.ntt.radix2 import Radix2, butterfly, radix2_ntt
     t = time.perf_counter()
     cs = compile_circuit(Membership(MERKLE_DEPTH), fields.BN254_FR)
@@ -1013,14 +1125,14 @@ def phase_merkle(res):
     log(f"merkle_d12: circuit {cs.summary()} and witness in "
         f"{time.perf_counter() - t:.2f} s")
     pk, vk, _ = timed_setup(cs, "merkle_d12")
-    for wr in (radix2_ntt, butterfly, row_fft):
+    for wr in (radix2_ntt, butterfly, fourstep_ntt):
         wr.launches = 0
     calls = [0]
     plan_call = Radix2.__call__
 
-    def counted(self, x):
+    def counted(self, x, pre=None, post=None):
         calls[0] += 1
-        return plan_call(self, x)
+        return plan_call(self, x, pre, post)
     Radix2.__call__ = counted
     try:
         for i in range(3):
@@ -1033,12 +1145,12 @@ def phase_merkle(res):
     finally:
         Radix2.__call__ = plan_call
     launches = {"radix2_ntt": radix2_ntt.launches,
-                "butterfly": butterfly.launches, "row_fft": row_fft.launches,
-                "transforms": calls[0]}
+                "butterfly": butterfly.launches,
+                "fourstep_ntt": fourstep_ntt.launches, "transforms": calls[0]}
     log("launches during 3 merkle_d12 proves: " + json.dumps(launches) +
         f"; K5 launches a prove: {radix2_ntt.launches / 3:g} (91 before "
         f"the whole-transform kernel)")
-    check(calls[0] > 0 and launches["row_fft"] == 0 and
+    check(calls[0] > 0 and launches["fourstep_ntt"] == 0 and
           launches["butterfly"] == 0,
           "merkle_d12 proves did not take the radix-2 plan")
     check(0 < radix2_ntt.launches <= 2 * calls[0],
@@ -1145,6 +1257,8 @@ def make_put(res, rate):
             r["plain_shape" + sfx] = plain_shape
         log(f"{name} {shape}: {ms:.4f} ms, plain {plain_shape or shape} "
             f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by}), agree")
+    put.res = res
+    put.rate = rate
     return put
 
 
@@ -1160,14 +1274,14 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
     sequence on the card); a disagreement fails the run."""
     import torch
     from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
                                             proj_double, proj_double_plain)
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
     from gnark_tpu_torch.msm.bucket import curve_b3
-    from gnark_tpu_torch.ntt.fourstep import (dif_stage_tw, row_fft,
-                                              row_fft_plain)
+    from gnark_tpu_torch.ntt.fourstep import (root_powers, row_fft,
+                                              row_fft_plain, row_plan,
+                                              seg_table)
     rate = int_mul_rate()
     put = make_put(res, rate)
     fr = get_ff("bn254_fr")
@@ -1181,14 +1295,16 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
     del a, b, got, want
     S = 1 << (n.bit_length() // 2)                 # row length, as FourStep
     x = rand_words(fr, n, rng).reshape(n // S, S, 8)
-    tw = torch.as_tensor(dif_stage_tw(fr, S, fr.p.root_of_unity(S)),
+    pw = torch.as_tensor(root_powers(fr, S, fr.p.root_of_unity(S)),
                          device=DEV)
-    ms, got = timed(lambda: row_fft(fr, x, tw))
-    pms, want = timed(lambda: row_fft_plain(fr, x, tw), 3)
+    tw = seg_table(pw, S.bit_length() - 1, row_plan(S)[1])
+    ms, got = timed(lambda: row_fft(fr, x, pw, tw))
+    pms, want = timed(lambda: row_fft_plain(fr, x, pw), 3)
     put("row_fft", "", [n // S, S, 8], ms, pms,
-        2 * n * 32 + tw.numel() * 4,
+        2 * n * 32 + pw.numel() * 4,
         n // 2 * (S.bit_length() - 1) * MUL_OPS["mul"], max_abs(got, want))
     del x, got, want
+    times_fourstep(res, put, rng, n)
     # K3 at the shapes of the bucket epilogue that K9 replaced on the main
     # path (its widest suffix-sum step at c = 8, W * B/2 pairs, and its
     # one-point Horner adds and doubles)
@@ -1211,22 +1327,35 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
 
     times_k5(res, put, rng)
     times_computeh(res, put, rng, n)
+    round_trip(1 << 25, rng)
 
     times_k6_k7(put, ladder_sc)
     times_ladder(res, rate, put, ladder_sc)
     torch.cuda.empty_cache()
 
-    # K8 at the scan path's widest shape: the first step of the group fold
-    # of a wire MSM (n_pts points), W * G/2 * 2^c rows; the plain version
-    # on the first 2^16 rows, against the kernel on the same slice
+    times_k8(put, n_pts)
+
+
+def times_k8(put, n_pts):
+    """K8 at the scan path's widest shape before the group fold became
+    one launch (the first halving step of a wire MSM's fold: W * G/2 *
+    2^c rows for n_pts points; now the widest K8 step is a suffix
+    sum's); the plain version on the first 2^16 rows, against the kernel
+    on the same slice; then the fold itself at that MSM's shape."""
+    import torch
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_plain
+    from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm.pippenger import _pick_params
+    c = curves.CURVES["bn254"]
     gen_t = torch.Generator(device=DEV).manual_seed(5)
     n_class = 1 << (n_pts - 1).bit_length()
     cc, G = _pick_params(n_class, c.fr.bits)
-    wide = -(-c.fr.bits // cc) * (G // 2) << cc
+    W = -(-c.fr.bits // cc)
+    wide = W * (G // 2) << cc
     for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
+        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
         Lw = 16 if g2 else 8
         P = tuple(rand_dev_words(wide, Lw, gen_t) for _ in range(6))
         pn = 1 << 16
@@ -1241,6 +1370,152 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
             max(max_abs(u, v) for u, v in zip(got, want)),
             plain_shape=[min(pn, wide), Lw])
         del P, sl_, got, want
+        torch.cuda.empty_cache()
+        times_fold(put, ff, Lw, op, sfx, W, G, 1 << cc, gen_t)
+
+
+def times_fold(put, ff, Lw, op, sfx, W, G, B, gen_t, plain_cols=1024):
+    """jac_fold at a wire MSM's fold (W windows, G groups, B buckets, W *
+    G * B rows in, W * B out) on random words, timed beside the halving
+    tree of K8 that it replaced (log2 G launches and a stack of the
+    buckets after each; on random words, which are no curve points, the
+    two orders give other values: phase 3 holds them equal on points).
+    The plain twin on the first plain_cols buckets of the first window
+    (their G rows), against the kernel on the same slice. Bound: (G - 1)
+    adds a column, the rows read and the columns written once."""
+    import torch
+    from gnark_tpu_torch.ec.jac_ec import jac_add, jac_fold, jac_fold_plain
+    N = W * G * B
+    P = tuple(rand_dev_words(N, Lw, gen_t) for _ in range(3))
+    ms, got = timed(lambda: jac_fold(ff, P, G, B), 3)
+
+    def tree():
+        T = torch.stack(P).reshape(3, W, G, B, Lw)
+        g = G
+        while g > 1:
+            h = g // 2
+            R = jac_add(ff, tuple(a.reshape(-1, Lw) for a in T[:, :, :h]),
+                        tuple(a.reshape(-1, Lw) for a in T[:, :, h:g]))
+            T = torch.stack(R).reshape(3, W, h, B, Lw)
+            g = h
+        return T[:, :, 0].reshape(3, W * B, Lw)
+    tree_ms, _ = timed(tree, 1)
+    sl_ = tuple(a.reshape(W, G, B, Lw)[:1, :, :plain_cols].reshape(-1, Lw)
+                .contiguous() for a in P)
+    pms, want = timed(lambda: jac_fold_plain(ff, sl_, G, plain_cols), 1,
+                      warm=False)
+    got = jac_fold(ff, sl_, G, plain_cols)
+    put("jac_fold", sfx, [N, Lw, G], ms, pms, (N + W * B) * 3 * Lw * 4,
+        (G - 1) * W * B * MUL_OPS["jac_add" + op],
+        max(max_abs(u, v) for u, v in zip(got, want)),
+        plain_shape=[G * plain_cols, Lw, G])
+    res_fold = put.res["jac_fold"]
+    res_fold["tree_ms" + sfx] = tree_ms
+    log(f"jac_fold{sfx} at W = {W}, G = {G}, B = {B}: {ms:.3f} ms; the "
+        f"halving tree of K8 it replaced {tree_ms:.3f} ms")
+    del P, sl_, got, want
+    torch.cuda.empty_cache()
+
+
+def times_fourstep(res, put, rng, n):
+    """A whole 2^n transform (fourstep_ntt, two launches with the
+    scalings and the mid twiddle inside) against its plain twin and
+    against the sequence of launches it replaced, run here on the same
+    inputs and on the current row kernel: K1 for a scaling, a transpose,
+    row_fft, K1 for the mid twiddle, a transpose, row_fft, two gathers
+    and a transpose (K1 for an iFFT's n^-1 after). Coset FFT (a
+    pre-scale vector) and iFFT (n^-1 broadcast). bound_ms: an n-point
+    NTT's own work, n/2 log2 n products and n for the scaling, the
+    input, output and scaling vector moved once. bound_ms_fourstep: the
+    four-step split's work, that plus n products for the mid twiddle
+    and its table read once."""
+    import torch
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ff.mont_mul import mont_mul
+    from gnark_tpu_torch.ntt import get_domain
+    from gnark_tpu_torch.ntt.fourstep import (bitrev, fourstep_ntt,
+                                              fourstep_ntt_plain, row_fft)
+    fr = get_ff("bn254_fr")
+    dom = get_domain(fr, n, DEV)
+    x = rand_words(fr, n, rng)
+    for inv, sfx in ((False, ""), (True, "_ifft")):
+        plan = dom._plan(inv)
+        S, n1 = plan.S, plan.n1
+        pre = None if inv else dom._coset
+        post = dom._ninv if inv else None
+        mid = plan.mid_t.reshape(S, n1, 8).permute(1, 0, 2).contiguous()
+        rS = torch.as_tensor(bitrev(S), device=DEV)
+        rn = torch.as_tensor(bitrev(n1), device=DEV)
+
+        def sequence():
+            y = mont_mul(fr, x, pre) if pre is not None else x
+            A = y.reshape(S, n1, 8).permute(1, 0, 2).contiguous()
+            Z = mont_mul(fr, row_fft(fr, A, plan.pw[0], plan.tw[0]), mid)
+            W = row_fft(fr, Z.permute(1, 0, 2).contiguous(), plan.pw[1],
+                        plan.tw[1])
+            D = W.index_select(0, rS).permute(1, 0, 2).index_select(0, rn)
+            D = D.reshape(n, 8)
+            return mont_mul(fr, D, post) if post is not None else D
+        before = fourstep_ntt.launches
+        ms, got = timed(lambda: fourstep_ntt(plan, x, pre, post))
+        per = (fourstep_ntt.launches - before) // 6
+        check(per == 2, f"fourstep_ntt 2^{n.bit_length() - 1}: {per} "
+              f"launches a transform")
+        seq_ms, want = timed(sequence)
+        check(torch.equal(got, want), f"fourstep_ntt{sfx} differs from the "
+              f"row_fft + K1 sequence")
+        pms, want = timed(lambda: fourstep_ntt_plain(plan, x, pre, post), 1,
+                          warm=False)
+        prods = n // 2 * (n.bit_length() - 1) + n
+        nbytes = 2 * n * 32 + (n * 32 if pre is not None else 32)
+        put("fourstep_ntt", sfx, [n, 8], ms, pms, nbytes,
+            prods * MUL_OPS["mul"], max_abs(got, want))
+        b, by = bound_ms(nbytes + n * 32, (prods + n) * MUL_OPS["mul"],
+                         put.rate)
+        res["fourstep_ntt"].update({"sequence_ms" + sfx: seq_ms,
+                                    "bound_ms_fourstep" + sfx: b,
+                                    "bound_by_fourstep" + sfx: by})
+        log(f"fourstep_ntt {'iFFT' if inv else 'coset FFT'} 2^"
+            f"{n.bit_length() - 1}: {ms:.4f} ms in 2 launches (four-step "
+            f"bound {b:.4f} ms, {by}); the row_fft + K1 + transposes + "
+            f"gathers sequence it replaced, on the current row kernel, "
+            f"{seq_ms:.4f} ms, the same words")
+    del x, got, want
+
+
+def round_trip(n, rng):
+    """A 2^25 domain (rows of 2^13: a global pass, then two shared-memory
+    segments) on the card: ifft(fft(x)) == x and ifft(fft(x, coset),
+    coset) == x, on random x; the K2 launches, the times and the
+    domain's build time logged. Before fourstep.row_plan, rows past a
+    block's shared memory made this transform raise."""
+    import torch
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ntt import Domain
+    from gnark_tpu_torch.ntt.fourstep import fourstep_ntt
+    fr = get_ff("bn254_fr")
+    t = time.perf_counter()
+    dom = Domain(fr, n, DEV)
+    sync()
+    build = time.perf_counter() - t
+    gen_t = torch.Generator(device=DEV).manual_seed(9)
+    x = rand_dev_words(n, 8, gen_t)
+    times = {}
+    for coset in (False, True):
+        before = fourstep_ntt.launches
+        ms_f, y = timed(lambda: dom.fft(x, coset=coset), 1, warm=False)
+        ms_i, z = timed(lambda: dom.ifft(y, coset=coset), 1, warm=False)
+        k = fourstep_ntt.launches - before
+        check(torch.equal(z, x), f"2^{n.bit_length() - 1} round trip "
+              f"(coset={coset}) did not give x back")
+        times[f"coset={coset}"] = {"fft_ms": ms_f, "ifft_ms": ms_i,
+                                   "launches": k}
+        del y, z
+    log(f"round trip at 2^{n.bit_length() - 1} (plans "
+        f"{dom._plan(False).rplan}): ifft(fft(x)) == x, plain and coset; "
+        f"{json.dumps(times)}; domain built in {build:.1f} s")
+    del dom, x
+    torch.cuda.empty_cache()
 
 
 def times_k5(res, put, rng):
@@ -1645,7 +1920,14 @@ KERNELS = {
                  "gnark_tpu/ff/pallas_ops.py:34 mul_p; "
                  "gnark_tpu/ntt/fourstep.py:198 _mid_mul"),
     "row_fft": ("gnark_tpu_torch/csrc/row_fft.cu",
-                "gnark_tpu/ntt/fourstep.py:114 _row_fft"),
+                "gnark_tpu/ntt/fourstep.py:114 _row_fft (rows alone, off "
+                "the main path: its transforms are fourstep_ntt's)"),
+    "fourstep_ntt": ("gnark_tpu_torch/csrc/row_fft.cu",
+                     "gnark_tpu/ntt/fourstep.py:114 _row_fft and :198 "
+                     "_mid_mul with FourStep.__call__'s XLA transposes "
+                     "(:175) and gnark_tpu/ntt/domain.py:164, :180 "
+                     "_scale's coset and n^-1 products (ff/pallas_ops.py:34 "
+                     "mul_p)"),
     "proj_add": ("gnark_tpu_torch/csrc/proj_ec.cu",
                  "gnark_tpu/ec/pallas_ec.py:316 proj_add_p"),
     "proj_double": ("gnark_tpu_torch/csrc/proj_ec.cu",
@@ -1662,6 +1944,10 @@ KERNELS = {
                    "gnark_tpu/ec/pallas_ec.py:370 jac_double_p"),
     "jac_add": ("gnark_tpu_torch/csrc/jac_ec.cu",
                 "gnark_tpu/ec/pallas_ec.py:264 jac_add_p"),
+    "jac_fold": ("gnark_tpu_torch/csrc/jac_ec.cu",
+                 "gnark_tpu/ec/pallas_ec.py:264 jac_add_p as "
+                 "gnark_tpu/msm/pippenger.py:187-189 folds the groups "
+                 "(a suffix scan over G)"),
     "bucket_reduce": ("gnark_tpu_torch/csrc/bucket_reduce.cu",
                       "gnark_tpu/ec/pallas_ec.py:316 proj_add_p and :346 "
                       "proj_double_p as gnark_tpu/msm/bucket_kernel.py:"
@@ -1740,6 +2026,11 @@ def main(argv) -> int:
         phase_kernels_ladder(rng, res)
         phase_kernels_affine(rng, res)
         if quick:
+            # the transforms and K8 / the fold at their path's shapes (a
+            # g16_20 wire MSM: 2^20 + 2049 points, the class of 2^20 + 1)
+            put = make_put(res, int_mul_rate())
+            times_fourstep(res, put, rng, 1 << 20)
+            times_k8(put, (1 << 20) + 1)
             log(json.dumps({"kernels": list(res.values())}))
             log(smi)
             return 0

@@ -1,6 +1,6 @@
 // Jacobian formulas for a = 0 curves, (X : Y : Z) ~ (X/Z^2, Y/Z^3),
 // infinity Z == 0, generic over the coordinate field (Fp for G1; for the
-// G2 twist Fp2 on one thread, or Fp2s of fp2s.cuh on a lane pair).
+// G2 twist Fp2s of fp2s.cuh on a lane pair).
 //
 // Counterparts of gnark_tpu/ec/pallas_ec.py _jac_double_t (EFD
 // dbl-2009-l), _jac_add_mixed_t (EFD madd-2007-bl plus the selects
@@ -19,10 +19,6 @@ template <class E>
 struct Jac {
   E X, Y, Z;
 };
-
-__device__ __forceinline__ bool is_zero_lazy(const Fp2& a, const FieldC& F) {
-  return is_zero_lazy(a.c0, F) && is_zero_lazy(a.c1, F);
-}
 
 // both components zero: each lane's flag, ANDed across the pair
 __device__ __forceinline__ bool is_zero_lazy(const Fp2s& a, const FieldC& F) {
@@ -56,7 +52,7 @@ __device__ __forceinline__ Jac<E> jac_dbl(const Jac<E>& P, const FieldC& F) {
 }
 
 // The doubling inside the mixed add runs on a few lanes at most; a call
-// keeps the (large, for Fp2) formula out of the add's basic block. With
+// keeps the formula out of the add's basic block. With
 // Fp2s both lanes of a pair call it or neither does.
 template <class E>
 __device__ __noinline__ Jac<E> jac_dbl_call(const Jac<E>& P, const FieldC& F) {
@@ -107,11 +103,16 @@ __device__ __forceinline__ Jac<E> jac_madd(const Jac<E>& P, const E& x2,
 }
 
 // add-2007-bl (a = 0): 11M + 5S, plus the selects of the complete add
-// (_jac_add_t): P == Q doubles, P == -Q gives infinity, P at infinity
-// gives Q, Q at infinity gives P.
+// (_jac_add_t): Q at infinity gives P, P at infinity gives Q, P == Q
+// doubles, P == -Q gives infinity. The infinity cases return before the
+// formula, so Q is not kept live to the end for a select (the G2 lane
+// pair's registers); both lanes of a pair take the same return. The
+// formula stays one straight run, the H == 0 cases after it.
 template <class E>
 __device__ __forceinline__ Jac<E> jac_add(const Jac<E>& P, const Jac<E>& Q,
                                           const FieldC& F) {
+  if (is_zero_lazy(Q.Z, F)) return P;
+  if (is_zero_lazy(P.Z, F)) return Q;
   E Z1Z1 = sqr_lazy(P.Z, F);
   E Z2Z2 = sqr_lazy(Q.Z, F);
   E U1 = mul_lazy(P.X, Z2Z2, F);
@@ -130,17 +131,12 @@ __device__ __forceinline__ Jac<E> jac_add(const Jac<E>& P, const Jac<E>& Q,
               double2p(mul_lazy(S1, J, F), F), F);
   E zz = add2p(P.Z, Q.Z, F);
   R.Z = mul_lazy(sub2p(sub2p(sqr_lazy(zz, F), Z1Z1, F), Z2Z2, F), H, F);
-
-  const bool inf1 = is_zero_lazy(P.Z, F);
-  const bool inf2 = is_zero_lazy(Q.Z, F);
-  if (!inf1 && !inf2 && is_zero_lazy(H, F)) {
+  if (is_zero_lazy(H, F)) {
     if (is_zero_lazy(r, F))
       R = jac_dbl_call(P, F);
     else
       jac_infinity(R, F);
   }
-  if (inf1) R = Q;
-  if (inf2) R = P;
   return R;
 }
 

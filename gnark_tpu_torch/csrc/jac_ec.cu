@@ -13,8 +13,13 @@
 // against.
 //
 // K8 is 16 products (11M + 5S) against 288 B (G1) of traffic per point,
-// so it is bound by operations as K6 is; one thread per point, the
-// doubling branch taken only by the lanes that need it.
+// so it is bound by operations as K6 is; one thread per point (a lane
+// pair in G2), the doubling branch taken only by the lanes that need it.
+// jac_fold is K8's formula over the scan path's group fold: one thread
+// (lane pair) a bucket column adds the column's G points left to right,
+// the accumulator lazy in registers, canonicalized once; one launch
+// where a halving tree took log2 G launches and a copy of every bucket
+// after each.
 //
 // Bound on this card: operations. A G1 mixed add is 11 Montgomery
 // products (4 of them squarings) and a double 7 (5 squarings), x3 base
@@ -28,9 +33,8 @@
 // TPU kernel's selects do. In G2, K6 and K7 give a point to a lane pair
 // (Fp2s, fp2s.cuh: c0 on the even lane, c1 on the odd), at twice the
 // threads, so each thread holds G1-sized state; the mask and the
-// affine operand are read per point. K8's G2 keeps the one-thread Fp2,
-// which reaches 255 registers and spills (see the ptxas report of the
-// build).
+// affine operand are read per point. K8 and jac_fold run G2 the same way
+// (the one-thread Fp2 reached 255 registers and spilled).
 #include "jac.cuh"
 
 // E: Fp (G1), or Fp2s (G2, Row<E>::lanes threads a point)
@@ -67,13 +71,16 @@ __global__ void jac_dbl_kernel(const uint32_t* x1, const uint32_t* y1,
   st_jac_canon(ox, oy, oz, i, jac_dbl(P, F), F);
 }
 
+static const int T = 128;
+
 template <class E>
-__global__ void jac_add_kernel(const uint32_t* x1, const uint32_t* y1,
-                               const uint32_t* z1, const uint32_t* x2,
-                               const uint32_t* y2, const uint32_t* z2,
-                               uint32_t* ox, uint32_t* oy, uint32_t* oz,
-                               long long n, FieldC F) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(T)
+    jac_add_kernel(const uint32_t* x1, const uint32_t* y1,
+                   const uint32_t* z1, const uint32_t* x2,
+                   const uint32_t* y2, const uint32_t* z2, uint32_t* ox,
+                   uint32_t* oy, uint32_t* oz, long long n, FieldC F) {
+  long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) /
+                Row<E>::lanes;
   if (i >= n) return;
   Jac<E> P, Q;
   ld_jac(P, x1, y1, z1, i);
@@ -81,7 +88,27 @@ __global__ void jac_add_kernel(const uint32_t* x1, const uint32_t* y1,
   st_jac_canon(ox, oy, oz, i, jac_add(P, Q, F), F);
 }
 
-static const int T = 128;
+// column o = w B + b of rows (w G + g) B + b, g = 0 .. G - 1: their sum,
+// added left to right
+template <class E>
+__global__ void __launch_bounds__(T)
+    jac_fold_kernel(const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                    uint32_t* ox, uint32_t* oy, uint32_t* oz, long long ncol,
+                    int G, long long B, FieldC F) {
+  long long o = (blockIdx.x * (long long)blockDim.x + threadIdx.x) /
+                Row<E>::lanes;
+  if (o >= ncol) return;
+  const long long w = o / B;
+  const long long r0 = w * G * B + (o - w * B);
+  Jac<E> acc;
+  ld_jac(acc, x, y, z, r0);
+  for (int g = 1; g < G; ++g) {
+    Jac<E> Q;
+    ld_jac(Q, x, y, z, r0 + g * B);
+    acc = jac_add(acc, Q, F);
+  }
+  st_jac_canon(ox, oy, oz, o, acc, F);
+}
 
 // blocks of T threads for n points of `lanes` threads each
 static unsigned blocks(long long n, int lanes) {
@@ -138,12 +165,32 @@ extern "C" int gt_jac_add(const void* x1, const void* y1, const void* z1,
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_add_kernel<Fp2><<<blocks(n, 1), T, 0, s>>>(
+    jac_add_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
         n, F);
   else
     jac_add_kernel<Fp><<<blocks(n, 1), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
         n, F);
+  return (int)cudaGetLastError();
+}
+
+// x, y, z: W G B rows, group-major ((w G + g) B + b); out: W B rows
+extern "C" int gt_jac_fold(const void* x, const void* y, const void* z,
+                           void* ox, void* oy, void* oz, long long ncol,
+                           int G, long long B, int fp2, const void* consts,
+                           void* stream) {
+  if (ncol <= 0) return 0;
+  if (G < 1 || B < 1 || ncol % B) return (int)cudaErrorInvalidValue;
+  FieldC F = field_from_host((const uint32_t*)consts);
+  cudaStream_t s = (cudaStream_t)stream;
+  typedef const uint32_t* cp;
+  typedef uint32_t* p;
+  if (fp2)
+    jac_fold_kernel<Fp2s><<<blocks(ncol, 2), T, 0, s>>>(
+        (cp)x, (cp)y, (cp)z, (p)ox, (p)oy, (p)oz, ncol, G, B, F);
+  else
+    jac_fold_kernel<Fp><<<blocks(ncol, 1), T, 0, s>>>(
+        (cp)x, (cp)y, (cp)z, (p)ox, (p)oy, (p)oz, ncol, G, B, F);
   return (int)cudaGetLastError();
 }

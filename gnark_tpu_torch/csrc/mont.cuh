@@ -386,7 +386,7 @@ __device__ __forceinline__ Fp2 mul_lazy(const Fp2& a, const Fp2& c,
   return r;
 }
 
-// one thread an Fp2 (K8's G2): as the product
+// one thread an Fp2 (K1's G2 affine kernel): as the product
 __device__ __forceinline__ Fp2 sqr_lazy(const Fp2& a, const FieldC& F) {
   return mul_lazy(a, a, F);
 }

@@ -1,5 +1,5 @@
-"""K6 jac_add_mixed, K7 jac_double, K8 jac_add: batched complete
-Jacobian ops.
+"""K6 jac_add_mixed, K7 jac_double, K8 jac_add and jac_fold: batched
+complete Jacobian ops.
 
 Counterpart of gnark_tpu.ec.pallas_ec.jac_add_mixed_p / jac_double_p /
 jac_add_p (EFD madd-2007-bl and add-2007-bl with the selects of a
@@ -8,6 +8,8 @@ reference's kernels are G1 only).
 Points are tuples (X, Y, Z) of (n, Lw) int32 word tensors, Lw = 8 for
 G1 and 16 for G2 (flat rows c0 | c1); Z == 0 is infinity. Inputs may be
 any representative < 2p; outputs are canonical. Kernel: csrc/jac_ec.cu.
+jac_fold is K8's formula over the scan-path MSM's group fold: each bucket
+column's G points summed left to right in one launch.
 On a CPU tensor the plain version (ec.weierstrass) runs; on a CUDA
 tensor the kernel, or an error.
 """
@@ -43,6 +45,26 @@ def jac_add_plain(ff, P, Q):
     R = weierstrass.jac_add(ff, tuple(_limbs(ff, a) for a in P),
                             tuple(_limbs(ff, a) for a in Q))
     return tuple(_words(ff, a) for a in R)
+
+
+def jac_fold_plain(ff, P, G, B):
+    """Plain version of jac_fold: acc = P_0, then acc = jac_add(acc, P_g)
+    for g = 1 .. G - 1, on canonical words."""
+    Lw = P[0].shape[1]
+    W = P[0].shape[0] // (G * B)
+    cols = [a.reshape(W, G, B, Lw) for a in P]
+    acc = tuple(a[:, 0].reshape(-1, Lw) for a in cols)
+    for g in range(1, G):
+        acc = jac_add_plain(ff, acc, tuple(a[:, g].reshape(-1, Lw)
+                                           for a in cols))
+    return tuple(_words(ff, _limbs(ff, a)) for a in acc)
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_fn():
+    return cuda.bind("jac_ec", "gt_jac_fold", 6,
+                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +134,10 @@ def jac_add(ff, P, Q):
     """Batched complete Jacobian P + Q (either may be infinity)."""
     if P[0].device.type == "cpu":
         return jac_add_plain(ff, P, Q)
+    return _add_card(ff, P, Q)
+
+
+def _add_card(ff, P, Q):
     n = P[0].shape[0]
     consts = kernel_field(ff)
     P = _check_point(ff, P, n, "jac_add P")
@@ -124,6 +150,34 @@ def jac_add(ff, P, Q):
     return out
 
 
+def jac_fold(ff, P, G, B):
+    """The scan path's group fold: P, three (W*G*B, Lw) word tensors,
+    row (w*G + g)*B + b holding bucket b of group g in window w ->
+    three (W*B, Lw): row w*B + b the sum over g of those rows, added left
+    to right (the sum of a column at infinity is infinity)."""
+    N = P[0].shape[0]
+    if G < 1 or B < 1 or N % (G * B):
+        raise ValueError(f"jac_fold: {N} rows are not W*G*B rows, G = {G}, "
+                         f"B = {B}")
+    if P[0].device.type == "cpu":
+        return jac_fold_plain(ff, P, G, B)
+    return _fold_card(ff, P, G, B)
+
+
+def _fold_card(ff, P, G, B):
+    N = P[0].shape[0]
+    consts = kernel_field(ff)
+    P = _check_point(ff, P, N, "jac_fold P")
+    ncol = N // G
+    out = tuple(P[0].new_empty((ncol, P[0].shape[1])) for _ in range(3))
+    rc = _fold_fn()(*(a.data_ptr() for a in P + out), ncol, G, B,
+                    int(is_fp2(ff)), consts.ctypes.data, cuda.stream(P[0]))
+    cuda.check(rc, "jac_fold")
+    jac_fold.launches += 1
+    return out
+
+
 jac_add_mixed.launches = 0
 jac_double.launches = 0
 jac_add.launches = 0
+jac_fold.launches = 0

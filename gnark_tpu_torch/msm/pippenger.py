@@ -9,7 +9,8 @@ Counterpart of gnark_tpu.msm.pippenger. Two paths:
     n/G sequential steps each add one point of every (window, group)
     pair into its bucket: a gather, one mixed add K6 of width W*G, a
     scatter (the W*G bucket indices of a step are distinct by
-    construction). The groups fold with K8, each window's
+    construction). The groups fold in one launch (jac_fold: K8's formula,
+    each bucket's G partial sums added left to right), each window's
     sum_j j*B_j is two suffix sums with K8, and the windows combine by
     Horner with c doublings (K7) and one add (K8) each.
 GNARK_TPU_MSM_IMPL (read at each call, as the reference reads it):
@@ -147,17 +148,10 @@ def _msm_scan(f, points, scalars, nbits: int, c: int, G: int, n_class: int):
         bk.index_copy_(1, ix, torch.stack(new))
     del xt, yt, it
 
-    # fold the groups: (3, W, G, B) -> (3, W, B), halving with K8
-    P = bk.reshape(3, W, G, B, Lw)
+    # fold the groups: (3, W*G*B) -> (3, W, B), one jac_fold launch
+    P = torch.stack(jac_ec.jac_fold(f, tuple(bk), G, B)) if G > 1 else bk
+    P = P.reshape(3, W, B, Lw)
     del bk
-    g = G
-    while g > 1:
-        h = g // 2
-        R = jac_ec.jac_add(f, tuple(a.reshape(-1, Lw) for a in P[:, :, :h]),
-                           tuple(a.reshape(-1, Lw) for a in P[:, :, h:g]))
-        P = torch.stack(R).reshape(3, W, h, B, Lw)
-        g = h
-    P = P[:, :, 0]                                   # (3, W, B, Lw)
 
     # per window sum_j j*B_j: suffix sums of buckets 1..B-1, padded to B
     # with an infinity at the end, then their sum (suffix sums again)

@@ -5,8 +5,10 @@ FFT and FFTInverse, optionally on the coset g*<omega>, over (n, nw)
 int32 word vectors in Montgomery form. The plan follows the reference's
 size switch: below 2^GNARK_TPU_NTT_FOURSTEP_LOG (default 14, read at each
 transform) and at n = 2 the radix-2 plan (ntt/radix2.py: kernel K5), at
-and above it the four-step plan (ntt/fourstep.py: kernels K2 and K1).
-The coset and n^-1 scalings are K1 products.
+and above it the four-step plan (ntt/fourstep.py: kernel K2). Both plans
+take the coset and n^-1 scalings as a pre- and a post-scale: the four-step
+plan inside its two launches (on pass 1's load, on pass 2's store), the
+radix-2 plan as K1 products.
 """
 
 from __future__ import annotations
@@ -17,8 +19,7 @@ import torch
 
 from gnark_tpu_torch.cuda import resolve_device
 from gnark_tpu_torch.ff import FF
-from gnark_tpu_torch.ff.mont_mul import mont_mul
-from gnark_tpu_torch.ntt.fourstep import FourStep, _powers
+from gnark_tpu_torch.ntt.fourstep import FourStep, power_table
 from gnark_tpu_torch.ntt.radix2 import Radix2
 
 
@@ -47,16 +48,15 @@ class Domain:
         self.coset_gen = ff.p.generator % p
         self.coset_gen_inv = pow(self.coset_gen, -1, p)
         self._plans: dict = {}
-        gi = _powers(self.coset_gen_inv, n, p)
-        self._coset = self._dev(_powers(self.coset_gen, n, p))
-        self._coset_inv_ninv = self._dev([v * self.n_inv % p for v in gi])
-        self._ninv = self._dev([self.n_inv])
+        dev = self.device
+        self._coset = power_table(ff, [self.coset_gen], n, dev)
+        self._coset_inv_ninv = power_table(ff, [self.coset_gen_inv], n, dev,
+                                           scale=self.n_inv)
+        self._ninv = torch.as_tensor(ff.encode_words([self.n_inv]),
+                                     device=dev)
         if n > 1:                        # build both plans up front
             self._plan(False)
             self._plan(True)
-
-    def _dev(self, vals):
-        return torch.as_tensor(self.ff.encode_words(vals), device=self.device)
 
     def _plan(self, inverse: bool):
         """The plan for this size under the current threshold, built on
@@ -73,14 +73,11 @@ class Domain:
         """Coefficients -> evaluations on (a coset of) the domain."""
         if self.n == 1:
             return x
-        if coset:
-            x = mont_mul(self.ff, x, self._coset)
-        return self._plan(False)(x)
+        return self._plan(False)(x, pre=self._coset if coset else None)
 
     def ifft(self, y: torch.Tensor, coset: bool = False) -> torch.Tensor:
         """Evaluations on (a coset of) the domain -> coefficients."""
         if self.n == 1:
             return y
-        x = self._plan(True)(y)
-        return mont_mul(self.ff, x,
-                        self._coset_inv_ninv if coset else self._ninv)
+        return self._plan(True)(
+            y, post=self._coset_inv_ninv if coset else self._ninv)

@@ -21,7 +21,8 @@ import torch
 
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ff import FF
-from gnark_tpu_torch.ntt.fourstep import _powers, bitrev
+from gnark_tpu_torch.ff.mont_mul import mont_mul
+from gnark_tpu_torch.ntt.fourstep import bitrev, mont_powers
 
 SEG_LOG = 10                      # stages of gt_ntt_seg, in shared memory
 PASS_MAX = 3                      # stages of one gt_ntt_pass, in registers
@@ -31,7 +32,7 @@ def stage_twiddles(ff: FF, n: int, w: int) -> list:
     """Per-stage twiddle words, Montgomery: stage s is (2^(s-1), nw)."""
     q = ff.p.modulus
     k = n.bit_length() - 1
-    return [ff.encode_words(_powers(pow(w, n >> s, q), 1 << (s - 1), q))
+    return [mont_powers(ff, [pow(w, n >> s, q)], 1 << (s - 1))
             for s in range(1, k + 1)]
 
 
@@ -156,6 +157,11 @@ class Radix2:
         self.tw = torch.as_tensor(np.concatenate(stage_twiddles(ff, n, w)),
                                   device=device)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (n, nw) words -> DFT in natural order, canonical."""
-        return radix2_ntt(self.ff, x, self.tw)
+    def __call__(self, x: torch.Tensor, pre=None, post=None) -> torch.Tensor:
+        """x: (n, nw) words -> DFT in natural order, canonical. pre: (n,
+        nw) words multiplied into x first; post: (n, nw) or (1, nw) words
+        multiplied into the result; each a K1 launch."""
+        if pre is not None:
+            x = mont_mul(self.ff, x, pre)
+        y = radix2_ntt(self.ff, x, self.tw)
+        return y if post is None else mont_mul(self.ff, y, post)

@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K9 (K1 with its fused (a*b - c)*d and affine
-entry points, K5 as whole transforms) and the fixed-base ladder against
-their plain PyTorch versions, the scan-path MSM against the bucket path,
-and a chunked bucket MSM against the single-shot one, on the card.
+entry points, K2 as whole four-step transforms, K5 as whole transforms,
+K8 with its group fold) and the fixed-base ladder against their plain
+PyTorch versions, the scan-path MSM against the bucket path, and a
+chunked bucket MSM against the single-shot one, on the card.
 Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor gnark_tpu, so it also runs where JAX
@@ -14,18 +15,21 @@ kernel (canonical outputs are fixed functions of the inputs); equal as
 group elements for K4, K9 and the two MSM paths (the order of additions
 differs, so the representatives do)."""
 
+import ctypes
 import random
 
 import numpy as np
 import pytest
 import torch
 
+from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ec import curves, host
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.backend.groth16 import _to_affine_host
 from gnark_tpu_torch.ec.jac_ec import (jac_add, jac_add_mixed,
                                        jac_add_mixed_plain, jac_add_plain,
-                                       jac_double, jac_double_plain)
+                                       jac_double, jac_double_plain,
+                                       jac_fold, jac_fold_plain)
 from gnark_tpu_torch.ec.proj_ec import (_limbs, proj_add, proj_add_plain,
                                         proj_double, proj_double_plain)
 from gnark_tpu_torch.ff import get_ff
@@ -43,8 +47,10 @@ from gnark_tpu_torch.msm.fixed_base import (affine_words, affine_words_plain,
                                             batch_scalar_mul_plain)
 from gnark_tpu_torch.msm.pippenger import msm_raw, scalar_limbs
 from gnark_tpu_torch.ntt import Domain
-from gnark_tpu_torch.ntt.fourstep import dif_stage_tw, row_fft, \
-    row_fft_plain
+from gnark_tpu_torch.ntt import fourstep
+from gnark_tpu_torch.ntt.fourstep import (FourStep, fourstep_ntt,
+                                          fourstep_ntt_plain, root_powers,
+                                          row_fft, row_fft_plain)
 from gnark_tpu_torch.ntt.radix2 import (butterfly, butterfly_plain,
                                         ntt_launches, radix2_ntt,
                                         radix2_ntt_plain, stage_twiddles)
@@ -182,11 +188,11 @@ def test_chunked_msm_matches_single(dev, g2, monkeypatch):
 def test_row_fft_and_fourstep(dev, monkeypatch):
     monkeypatch.setenv("GNARK_TPU_NTT_FOURSTEP_LOG", "11")
     f = get_ff("bn254_fr")
-    for S in (2, 512, 1024):
+    for S in (2, 512, 1024, 4096):
         x = _words(f, 4 * S, S, dev).reshape(4, S, f.nw)
-        tw = torch.as_tensor(dif_stage_tw(f, S, f.p.root_of_unity(S)),
+        pw = torch.as_tensor(root_powers(f, S, f.p.root_of_unity(S)),
                              device=dev)
-        assert torch.equal(row_fft(f, x, tw), row_fft_plain(f, x, tw))
+        assert torch.equal(row_fft(f, x, pw), row_fft_plain(f, x, pw))
     n = 1 << 11
     x = _words(f, n, 3, "cpu")
     dg, dc = Domain(f, n, dev), Domain(f, n, "cpu")
@@ -194,6 +200,76 @@ def test_row_fft_and_fourstep(dev, monkeypatch):
         assert torch.equal(dg.fft(x.to(dev), coset).cpu(), dc.fft(x, coset))
         assert torch.equal(dg.ifft(x.to(dev), coset).cpu(),
                            dc.ifft(x, coset))
+
+
+def _transforms(dom, x):
+    """(name, kernel output, twin output) of fft / ifft, plain and coset,
+    on Domain dom's four-step plans."""
+    out = []
+    for inv in (False, True):
+        plan = dom._plan(inv)
+        assert isinstance(plan, FourStep)
+        for coset in (False, True):
+            pre = dom._coset if coset and not inv else None
+            post = None if not inv else (dom._coset_inv_ninv if coset
+                                         else dom._ninv)
+            got = (dom.ifft if inv else dom.fft)(x, coset=coset)
+            out.append((f"{'i' if inv else ''}fft coset={coset}", got,
+                        fourstep_ntt_plain(plan, x, pre, post)))
+    return out
+
+
+@pytest.mark.parametrize("k", [14, 15, 16])
+def test_fourstep_two_launches(dev, k):
+    """Domain.fft / ifft, plain and coset, at 2^14-2^16: two K2 launches
+    each, no K1, bit-exact against the plain four-step sequence; a third
+    of the inputs in [p, 2p)."""
+    f = get_ff("bn254_fr")
+    n = 1 << k
+    q = f.p.modulus
+    x = _words(f, n, k, dev)
+    x[::3] = _raw_scalars([int(v) + q for v in f.decode_words(
+        x[::3].cpu(), mont=False)], dev)
+    dom = Domain(f, n, dev)
+    k0, m0 = fourstep_ntt.launches, mont_mul.launches
+    for name, got, want in _transforms(dom, x):
+        assert torch.equal(got, want), name
+    assert fourstep_ntt.launches - k0 == 8 and mont_mul.launches == m0
+
+
+@pytest.mark.parametrize("k, cap", [(12, 3), (13, 4), (9, 2)])
+def test_fourstep_global_passes(dev, k, cap, monkeypatch):
+    """With the shared-memory cap lowered, rows longer than 2^cap run
+    their first stages as global register passes: bit-exact against the
+    twin, and one launch more a pass."""
+    monkeypatch.setattr(fourstep, "SMEM_LOG", cap)
+    monkeypatch.setenv("GNARK_TPU_NTT_FOURSTEP_LOG", "1")
+    f = get_ff("bn254_fr")
+    n = 1 << k
+    dom = Domain(f, n, dev)
+    plan = dom._plan(False)
+    npass = sum(len(rp[0]) for rp in plan.rplan)
+    assert npass > 0
+    x = _words(f, n, k, dev)
+    k0 = fourstep_ntt.launches
+    for name, got, want in _transforms(dom, x):
+        assert torch.equal(got, want), name
+    assert fourstep_ntt.launches - k0 == 4 * (2 + npass)
+    S = 1 << (cap + 2)
+    xr = _words(f, 3 * S, 7, dev).reshape(3, S, f.nw)
+    pw = torch.as_tensor(root_powers(f, S, f.p.root_of_unity(S)),
+                         device=dev)
+    assert torch.equal(row_fft(f, xr, pw), row_fft_plain(f, xr, pw))
+
+
+def test_seg_smem_matches_kernel(dev):
+    """fourstep.seg_smem_bytes, the host's copy of the segment block's
+    shared-memory size that the row_plan fault tests read, against the
+    kernel's own formula (gt_fs_smem) at every segment log."""
+    smem = cuda.lib("row_fft").gt_fs_smem
+    smem.restype = ctypes.c_longlong
+    for G in range(1, fourstep.SMEM_LOG + 1):
+        assert smem(G) == fourstep.seg_smem_bytes(G), G
 
 
 @pytest.mark.parametrize("g2", [False, True])
@@ -440,8 +516,8 @@ def _jac_words(ff, hf, pts, rng, dev, lazy=0):
 
 @pytest.mark.parametrize("g2", [False, True])
 def test_jac_add(dev, g2):
-    """K8 on P == Q (another Z), P == -Q, either or both at infinity,
-    X in [p, 2p), random pairs; and on random words."""
+    """K8 (G2 on lane pairs) on P == Q (another Z), P == -Q, either or
+    both at infinity, X in [p, 2p), random pairs; and on random words."""
     ff, hf, _, gen = _group(g2)
     rng = random.Random(8)
     base = [gen]
@@ -497,3 +573,39 @@ def test_scan_msm_matches_bucket(dev, g2, monkeypatch):
         assert kind == ("jac" if impl == "scan" else "proj")
         out[impl] = _to_affine_host(ff, hf, kind, P)
     assert out["scan"] == out["bucket"] != host.INF
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_jac_fold(dev, g2):
+    """The group fold kernel against its plain twin, bit-exact, at W = 3,
+    G = 8, B = 37 (a ragged last block): a column of equal points, one
+    of P and -P, one all at infinity, X in [p, 2p); and the host's
+    sums."""
+    ff, hf, _, gen = _group(g2)
+    rng = random.Random(17)
+    base = [gen]
+    for _ in range(15):
+        base.append(host.ec_add(hf, base[-1], gen))
+    W, G, B = 3, 8, 37
+    pts = [base[rng.randrange(16)] for _ in range(W * G * B)]
+
+    def row(w, g, b):
+        return (w * G + g) * B + b
+
+    for g in range(G):
+        pts[row(0, g, 1)] = base[3]
+        pts[row(2, g, 5)] = host.INF
+    pts[row(1, 0, 2)], pts[row(1, 1, 2)] = base[7], host.ec_neg(hf, base[7])
+    P = _jac_words(ff, hf, pts, rng, dev, 50)
+    before = jac_fold.launches
+    got = jac_fold(ff, P, G, B)
+    assert jac_fold.launches - before == 1
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, jac_fold_plain(ff, P, G, B)))
+    for w, b in ((0, 1), (1, 2), (2, 5), (2, 36)):
+        want = host.INF
+        for g in range(G):
+            want = host.ec_add(hf, want, pts[row(w, g, b)])
+        i = w * B + b
+        assert _to_affine_host(ff, hf, "jac",
+                               tuple(a[i:i + 1] for a in got)) == want

@@ -1,4 +1,4 @@
-"""Two faults of the port, fixed, on the CPU:
+"""Three faults of the port, fixed, on the CPU:
   * K4's grouping holds an MSM's (window, point) pairs at int32 offsets
     (csrc/bucket_msm.cu), so msm/bucket.chunk_plan cuts an MSM into
     chunks of fewer than MAX_PAIRS pairs: 2^27 points at c = 13 (W = 20)
@@ -7,7 +7,16 @@
     single-shot one in tests/test_torch_cuda.py.
   * the native solver's build writes a file of its own and renames it
     into place: two builds started at once into a fresh directory both
-    load a whole library."""
+    load a whole library;
+  * K2 held a whole row of 2^ceil(k/2) points in one block's shared
+    memory, more than an H100 block may have from a 2^25 domain on (rows
+    of 2^13, 256 KB): ntt/fourstep.row_plan runs every stage past
+    2^SMEM_LOG in global register passes, so no block asks for more than
+    the card gives; decided from the sizes alone, with the host's copy
+    of the kernel's shared-memory formula (seg_smem_bytes; the card holds
+    it to the kernel's own in tests/test_torch_cuda.py). The card runs a
+    2^25 round trip in chip_smoke.py and the passes at a lowered cap in
+    tests/test_torch_cuda.py."""
 
 import ctypes
 import threading
@@ -17,6 +26,9 @@ import pytest
 from gnark_tpu_torch import native
 from gnark_tpu_torch.msm import bucket
 from gnark_tpu_torch.msm.bucket import MAX_PAIRS, chunk_plan, digit_count
+from gnark_tpu_torch.ntt import fourstep
+from gnark_tpu_torch.ntt.fourstep import (SMEM_LIMIT, fourstep_shape,
+                                          row_plan, seg_smem_bytes)
 
 NBITS = 254
 
@@ -71,3 +83,41 @@ def test_native_build_is_atomic(tmp_path, monkeypatch):
     assert [p.name for p in (tmp_path / "build").iterdir()] == [out[0].name]
     for so in out:
         assert ctypes.CDLL(str(so)).gnark_tpu_solve
+
+
+@pytest.mark.parametrize("S, plan", [
+    (1 << 10, ((), 10)),
+    (1 << 12, ((), 12)),
+    (1 << 13, ((1,), 12)),                    # a 2^25 or 2^26 domain's rows
+    (1 << 14, ((2,), 12)),                    # 2^27, 2^28 (Fr's 2-adicity)
+    (1 << 16, ((3, 1), 12)),
+])
+def test_row_plan_puts_long_rows_in_global_passes(S, plan):
+    assert row_plan(S) == plan
+    passes, G = plan
+    assert sum(passes) + G == S.bit_length() - 1
+    assert all(1 <= r <= fourstep.PASS_MAX for r in passes)
+
+
+@pytest.mark.parametrize("k", range(2, 29))
+def test_fourstep_blocks_fit_shared_memory(k):
+    """Every domain up to BN254 Fr's two-adicity: no segment block over
+    the cap, and none asks for more shared memory than one H100 block may
+    have (2^25 asked 256 KB before)."""
+    S, n1 = fourstep_shape(1 << k)
+    assert S * n1 == 1 << k and n1 <= S
+    for m in (S, n1):
+        passes, G = row_plan(m)
+        assert G <= fourstep.SMEM_LOG
+        assert seg_smem_bytes(G) <= SMEM_LIMIT
+    if k == 25:
+        assert (S, n1) == (1 << 13, 1 << 12)
+        assert row_plan(S) == ((1,), 12) and row_plan(n1) == ((), 12)
+        assert S * 32 > SMEM_LIMIT                # what failed before
+
+
+def test_row_plan_cap_is_a_module_constant(monkeypatch):
+    monkeypatch.setattr(fourstep, "SMEM_LOG", 3)
+    assert row_plan(1 << 10) == ((3, 3, 1), 3)
+    assert row_plan(1 << 3) == ((), 3)
+    assert row_plan(2) == ((), 1)

@@ -15,7 +15,7 @@ from gnark_tpu.ntt import Domain as RefDomain
 from gnark_tpu.ntt.fourstep import FourStep as RefFourStep
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.ntt import get_domain
-from gnark_tpu_torch.ntt.fourstep import (FourStep, bitrev, dif_stage_tw,
+from gnark_tpu_torch.ntt.fourstep import (FourStep, bitrev, root_powers,
                                           row_fft)
 
 torch.set_num_threads(2)
@@ -53,8 +53,8 @@ def test_row_fft_plain_is_bit_reversed_dft():
     w = f.p.root_of_unity(S)
     v = _vals(S * rows, 5)
     x = torch.as_tensor(f.encode_words(v)).reshape(rows, S, f.nw)
-    tw = torch.as_tensor(dif_stage_tw(f, S, w))
-    got = f.decode_words(row_fft(f, x, tw))       # CPU: the plain version
+    pw = torch.as_tensor(root_powers(f, S, w))
+    got = f.decode_words(row_fft(f, x, pw))       # CPU: the plain version
     rev = bitrev(S)
     for r_ in range(rows):
         row = v[r_ * S:(r_ + 1) * S]

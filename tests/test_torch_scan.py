@@ -9,7 +9,11 @@ on the CPU:
   * GNARK_TPU_MSM_IMPL routes as documented;
   * the plain K8 equals the reference's gnark_tpu.ec.weierstrass.jac_add
     on K8's edge cases (P == Q with another Z, P == -Q, either or both
-    at infinity).
+    at infinity);
+  * the group fold's plain twin (jac_fold_plain, left to right) equals
+    the halving tree of plain K8 adds that it replaced and the host's
+    sums, in G1 and G2, on columns of equal points (the doubling
+    branch), of P and -P, and all at infinity.
 Tolerance: exact (affine host ints; canonical Montgomery limbs)."""
 
 import random
@@ -25,6 +29,7 @@ from gnark_tpu.ff import get_ff as ref_get_ff
 from gnark_tpu.msm import msm as ref_msm
 from gnark_tpu_torch.backend.groth16 import _to_affine_host
 from gnark_tpu_torch.ec import curves, host, weierstrass
+from gnark_tpu_torch.ec.jac_ec import jac_add_plain, jac_fold, jac_fold_plain
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.msm import pippenger
@@ -220,3 +225,49 @@ def test_scan_g1_matches_bucket_and_reference(n, c, g, monkeypatch):
     ref = host.INF if bool(rinf) else (int(rff.decode(np.asarray(rx))),
                                        int(rff.decode(np.asarray(ry))))
     assert got == ref
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_jac_fold_plain_matches_tree_and_host(g2):
+    """W = 2 windows, G = 4 groups, B = 8 buckets, group-major rows
+    (w*G + g)*B + b as _msm_scan holds them."""
+    ff, hf, gen = _group(g2)
+    W, G, B = 2, 4, 8
+    rng = random.Random(21 + g2)
+    base = [host.ec_mul(hf, gen, k) for k in range(1, 9)]
+    pts = [base[rng.randrange(8)] for _ in range(W * G * B)]
+
+    def row(w, g, b):
+        return (w * G + g) * B + b
+
+    for g in range(G):
+        pts[row(0, g, 1)] = base[2]                 # equal: doubling
+        pts[row(1, g, 3)] = host.INF                # all at infinity
+    pts[row(0, 0, 2)], pts[row(0, 1, 2)] = base[5], host.ec_neg(hf, base[5])
+    pts[row(0, 2, 2)] = pts[row(0, 3, 2)] = host.INF    # P + (-P) + inf
+    pts[row(1, 2, 0)] = host.INF
+    P = tuple(torch.as_tensor(ff.encode_words(c)).reshape(W * G * B, -1)
+              for c in _jac_coords(ff, hf, pts, rng))
+    got = jac_fold(ff, P, G, B)                     # CPU: the plain twin
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, jac_fold_plain(ff, P, G, B)))
+    Lw = P[0].shape[1]
+    T = tuple(a.reshape(W, G, B, Lw) for a in P)
+    g = G
+    while g > 1:                                    # the halving tree
+        h = g // 2
+        R = jac_add_plain(ff, tuple(a[:, :h].reshape(-1, Lw) for a in T),
+                          tuple(a[:, h:g].reshape(-1, Lw) for a in T))
+        T = tuple(a.reshape(W, h, B, Lw) for a in R)
+        g = h
+    for w in range(W):
+        for b in range(B):
+            i = w * B + b
+            want = host.INF
+            for gg in range(G):
+                want = host.ec_add(hf, want, pts[row(w, gg, b)])
+            assert _to_affine_host(ff, hf, "jac", tuple(
+                a[i:i + 1] for a in got)) == want == _to_affine_host(
+                ff, hf, "jac", tuple(a[w, 0, b][None] for a in T))
+    assert _to_affine_host(ff, hf, "jac", tuple(
+        a[2:3] for a in got)) is host.INF
