@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: the eight CUDA kernel libraries (one nvcc each, in
+  2. build: the nine CUDA kernel libraries (one nvcc each, in
      parallel) and the native witness solver;
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, mont_mul_sub_mul ((a*b - c)*d, broadcast d) and
@@ -25,6 +25,10 @@ Phases (any failure exits non-zero):
      cases, K8's group fold jac_fold against its twin, the halving tree
      and the host, and the fused fixed-base ladder at 254 bits on the scalars
      that take the complete add's branches (0, 1, r - 1, r, r + 2);
+     K10 ff_addsub, K11 batch_inv, K12 scan_mul and K13 dot (PLONK's
+     field operations) at n = 1, 5, 2049, 2^16 and 2^20 on lazy inputs
+     with zeros (K11 also on all zeros, K12 also at 2^22 + 1: three
+     levels);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
@@ -47,6 +51,18 @@ Phases (any failure exits non-zero):
      commitment over 589,824 wires, N = 2^20: setup, two proves and one
      on the scan path that must equal the second, verify; a swapped
      commitment and PoK, and a tampered PoK, do not verify);
+     then PLONK: mimc_plonk (examples/mimc_plonk.py's circuit, SRS 2048)
+     and rc_plonk (16 values through std/rangecheck, one BSB22
+     commitment): SRS, setup and a prove on the card, the same prove on
+     the CPU with the keys moved there (the same proof bytes), verify,
+     a wrong public value / a tampered pi2 commitment refused; and
+     plonk_20 (2^20 - 1 squaring-chain gates of bench.py's PLONK
+     circuit, N = 2^20, the quotient's rho path): an SRS of 2^20 + 8
+     (one ladder and one affine_words launch), setup, three proves
+     with their launches counted (K10-K13, K1, K2 and the bucket MSM
+     must launch, K3 and K5 must not), each stage timed by the host
+     clock and CUDA events, verify, a tampered claimed value and a
+     tampered commitment refused;
   6. every kernel again at the shapes its path gives it, held against
      its plain version on the same inputs (K4 and K9 on the g16_20 setup
      key's columns, 2^20 distinct points, with K4's grouping and passes
@@ -60,7 +76,8 @@ Phases (any failure exits non-zero):
      kernel); K8 at the widest
      halving step the group fold had and jac_fold at that wire MSM's
      fold, beside the halving tree; one whole 2^13 K5 transform; a 2^25
-     domain's ifft(fft(x)) == x, plain and coset); its launches during
+     domain's ifft(fft(x)) == x, plain and coset; K10-K13 at
+     plonk_20's shapes); its launches during
      its path, its time, its bound and its plain version's time, as one
      JSON line; the whole bucket MSM at each window width of SWEEP_C on
      those columns and their first 2^16 and 2^13 points (one group
@@ -108,6 +125,8 @@ N_CHAINS, CHAIN_LEN = 2048, 512      # 2^20 constraints
 SETUP_SEED = 7
 MERKLE_DEPTH = 12                    # 7,957 constraints, N = 2^13
 RC_VALUES = 1 << 17                  # rc_20: ~720,900 constraints, N = 2^20
+PLONK_CHAINS, PLONK_LEN = 2048, 512  # plonk_20: 2^20 - 1 gates, N = 2^20
+PLONK_RC_VALUES = 16                 # rc_plonk: 1,392 gates, N = 2^11
 C_MAIN = 8            # the bucket MSM's width at 2^20 points; set in main
 
 
@@ -488,6 +507,7 @@ def all_wrappers():
     from gnark_tpu_torch.ec.jac_ec import (jac_add, jac_add_mixed, jac_double,
                                            jac_fold)
     from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
+    from gnark_tpu_torch.ff import ops
     from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_reduce)
@@ -497,7 +517,8 @@ def all_wrappers():
     return (mont_mul, row_fft, proj_add, proj_double, bucket_msm, radix2_ntt,
             jac_add_mixed, jac_double, jac_add, bucket_reduce, bucket_digits,
             batch_scalar_mul, mont_mul_sub_mul, affine_words, butterfly,
-            fourstep_ntt, jac_fold)
+            fourstep_ntt, jac_fold, ops.ff_addsub, ops.batch_inv,
+            ops.scan_mul, ops.dot)
 
 
 def scan_prove(what, fn):
@@ -1334,6 +1355,7 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
     torch.cuda.empty_cache()
 
     times_k8(put, n_pts)
+    times_ff_ops(res, put, rng)
 
 
 def times_k8(put, n_pts):
@@ -1914,6 +1936,227 @@ def rand_dev_words(n, lw, gen):
 
 
 # ---------------------------------------------------------------------------
+# PLONK: K10-K13 on the card, the mimc_plonk / rc_plonk / plonk_20 cells
+# ---------------------------------------------------------------------------
+
+def phase_kernels_ff_ops(rng, res):
+    """K10-K13 against their plain versions: one row, rows not a power of
+    two, 2^16 and 2^20 rows, a third of each operand in [p, 2p) and a
+    zero row in every 97 (0 and p); K11 on all zeros; K12 across 512
+    blocks (2^20) and three levels (2^22 + 1); K13 past one first-pass
+    block and at n = 1."""
+    import torch
+    from gnark_tpu_torch.ff import get_ff, ops
+    fr = get_ff("bn254_fr")
+    q = fr.p.modulus
+    err = {k: 0 for k in ("ff_addsub", "batch_inv", "scan_mul", "dot")}
+
+    def agree(name, got, want, shape):
+        check(torch.equal(got, want), f"{name} {shape} disagrees with its "
+              f"plain version")
+        err[name] = max(err[name], max_abs(got, want))
+
+    for n in (1, 5, 2049, 1 << 16, 1 << 20):
+        a = rand_words(fr, n, rng, lazy=n // 3)
+        b = rand_words(fr, n, rng, lazy=n // 3)
+        if n > 1:                   # zeros: p (lazy) and 0
+            a[::97] = raw_words([q])
+            a[48::97] = 0
+        for bb in (b, b[:1]):
+            agree("ff_addsub", ops.add(fr, a, bb), ops.add_plain(fr, a, bb), n)
+            agree("ff_addsub", ops.sub(fr, a, bb), ops.sub_plain(fr, a, bb), n)
+        agree("batch_inv", ops.batch_inv(fr, a), ops.batch_inv_plain(fr, a),
+              n)
+        z = torch.zeros_like(a)
+        agree("batch_inv", ops.batch_inv(fr, z), z, n)
+        agree("scan_mul", ops.scan_mul(fr, a), ops.scan_mul_plain(fr, a), n)
+        agree("dot", ops.dot(fr, a, b), ops.dot_plain(fr, a, b), n)
+        agree("dot", ops.dot(fr, a), ops.dot_plain(fr, a), n)
+    n = (1 << 22) + 1
+    a = rand_words(fr, n, rng, lazy=n // 3)
+    agree("scan_mul", ops.scan_mul(fr, a), ops.scan_mul_plain(fr, a), n)
+    del a, b, z
+    for k, v in err.items():
+        res[k]["max_abs_err"] = v
+    log("K10 ff_addsub, K11 batch_inv, K12 scan_mul, K13 dot: n = 1, 5, "
+        "2049, 2^16, 2^20 (and K12 at 2^22 + 1) with lazy inputs and zeros "
+        "bit-exact against their plain versions")
+
+
+def tampered_plonk(proof, curve):
+    """A tampered claimed value and a tampered commitment (Z + G)."""
+    import dataclasses
+    from gnark_tpu_torch.ec import host
+    q = curve.fr.modulus
+    return {"claimed value": dataclasses.replace(
+                proof, claimed=[(proof.claimed[0] + 1) % q]
+                + list(proof.claimed[1:])),
+            "commitment": dataclasses.replace(
+                proof, z=host.ec_add(curve.host_fp, proof.z, curve.g1))}
+
+
+def phase_plonk_small(res):
+    """mimc_plonk (examples/mimc_plonk.py's circuit, SRS 2048) and
+    rc_plonk (PLONK_RC_VALUES values through std/rangecheck: one BSB22
+    commitment): the SRS and setup on the card, a prove on the card and
+    the same prove on the CPU (the keys copied over) with equal bytes,
+    verify, and a wrong public value (mimc_plonk) or a tampered pi2
+    commitment (rc_plonk) refused."""
+    import dataclasses
+    from gnark_tpu_torch import fields
+    from gnark_tpu_torch.backend import kzg, plonk
+    from gnark_tpu_torch.backend.groth16_check import (
+        MimcPreimage, RangeChecked, range_checked_assignment)
+    from gnark_tpu_torch.frontend import compile_circuit, witness
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+    from gnark_tpu_torch.std.hash.mimc import mimc_hash
+    pre = 0xDEADBEEF
+    cases = (("mimc_plonk", MimcPreimage(),
+              MimcPreimage(pre=pre, h=mimc_hash([pre])), 2048),
+             ("rc_plonk", RangeChecked(PLONK_RC_VALUES),
+              range_checked_assignment(PLONK_RC_VALUES, 5), None))
+    for what, circ, assign, srs_n in cases:
+        t = time.perf_counter()
+        cs = compile_circuit(circ, fields.BN254_FR, builder_cls=SCSBuilder)
+        pub, sec = witness(assign, cs)
+        N = 1 << (cs.nb_public + cs.nb_constraints - 1).bit_length()
+        srs = kzg.setup_srs("bn254", srs_n or N + 8, rng=random.Random(0),
+                            device=DEV)
+        pk, vk = plonk.setup(cs, srs)
+        sync()
+        log(f"{what}: circuit {cs.summary()}, {len(cs.commitments)} "
+            f"commitment(s), N = {vk.size}; SRS and setup on the card in "
+            f"{time.perf_counter() - t:.2f} s")
+        tm = {}
+        t = time.perf_counter()
+        proof = plonk.prove(cs, pk, pub, sec, rng=random.Random(1),
+                            timings=tm, device=DEV)
+        tm["total"] = time.perf_counter() - t
+        log(f"{what} prove on the card (s): {fmt_times(tm)}")
+        t = time.perf_counter()
+        cpu = plonk.prove(cs, pk.to("cpu"), pub, sec, rng=random.Random(1),
+                          device="cpu")
+        check(dataclasses.asdict(cpu) == dataclasses.asdict(proof),
+              f"{what}: the card's proof differs from the CPU's")
+        log(f"{what}: the CPU's prove (plain versions, "
+            f"{time.perf_counter() - t:.1f} s) gives the card's proof "
+            f"byte for byte")
+        check(plonk.verify(proof, vk, pub), f"{what}: verify rejected")
+        if pub:
+            check(not plonk.verify(proof, vk, [(pub[0] + 1) % vk.curve.fr
+                                               .modulus]),
+                  f"{what}: verify accepted a wrong public value")
+            log(f"{what} verify: True; with a wrong public value: False")
+        else:
+            bad = dataclasses.replace(proof, bsb22=[proof.lro[0]])
+            check(not plonk.verify(bad, vk, pub),
+                  f"{what}: verify accepted a tampered pi2 commitment")
+            log(f"{what} verify: True; with a tampered pi2 commitment: "
+                f"False")
+
+
+def phase_plonk20(res):
+    """plonk_20: BN254 PLONK on 2^20 - 1 squaring-chain gates, N = 2^20
+    (the rho path): an SRS of 2^20 + 8 (one ladder and one affine_words
+    launch), setup, three proves with every launch count set to 0 first
+    (K10-K13, K1, K2 and the bucket MSM must launch; K3 and K5 must
+    not), verify, and a tampered claimed value and a tampered commitment
+    refused."""
+    from gnark_tpu_torch.backend import kzg, plonk
+    from gnark_tpu_torch.backend.groth16_check import plonk_square_chain
+    from gnark_tpu_torch.backend.plonk_device import RHO_MIN_LOG
+    from gnark_tpu_torch.msm.fixed_base import affine_words, batch_scalar_mul
+    t = time.perf_counter()
+    cs = plonk_square_chain(PLONK_CHAINS, PLONK_LEN)
+    log(f"plonk_20: circuit {cs.summary()} built in "
+        f"{time.perf_counter() - t:.2f} s")
+    for wr in (batch_scalar_mul, affine_words):
+        wr.launches = 0
+    tm = {}
+    t = time.perf_counter()
+    srs = kzg.setup_srs("bn254", (1 << 20) + 8, rng=random.Random(3),
+                        device=DEV, timings=tm)
+    tm["total"] = time.perf_counter() - t
+    log(f"plonk_20 SRS of 2^20 + 8 (s): {fmt_times(tm)}")
+    check(batch_scalar_mul.launches == 1 and affine_words.launches == 1,
+          "plonk_20 SRS: not one ladder and one affine_words launch")
+    tm = {}
+    t = time.perf_counter()
+    pk, vk = plonk.setup(cs, srs, timings=tm)
+    tm["total"] = time.perf_counter() - t
+    log(f"plonk_20 setup (s): {fmt_times(tm)}")
+    check(vk.size == 1 << 20, f"plonk_20: N = {vk.size}, not 2^20")
+    check(vk.size >= 1 << RHO_MIN_LOG,
+          "plonk_20 would not take the rho path")
+
+    wrappers = all_wrappers()
+    for wr in wrappers:
+        wr.launches = 0
+    sec = [i + 2 for i in range(PLONK_CHAINS)]
+    proofs = []
+    for i in range(3):
+        tm = {}
+        t = time.perf_counter()
+        proofs.append(plonk.prove(cs, pk, [], sec, rng=random.Random(4 + i),
+                                  timings=tm, device=DEV))
+        tm["total"] = time.perf_counter() - t
+        log(f"plonk_20 prove {i} (s): {fmt_times(tm)}")
+    launches = {wr.__name__: wr.launches for wr in wrappers}
+    log("launches during 3 plonk_20 proves: " + json.dumps(launches))
+    for k in ("ff_addsub", "batch_inv", "scan_mul", "dot", "mont_mul",
+              "fourstep_ntt", "bucket_digits", "bucket_msm",
+              "bucket_reduce"):
+        check(launches[k] > 0, f"plonk_20: {k} was not launched")
+    for k in ("proj_add", "proj_double", "radix2_ntt", "row_fft"):
+        check(launches[k] == 0, f"plonk_20: {k} was launched "
+              f"{launches[k]} times")
+    for k in ("ff_addsub", "batch_inv", "scan_mul", "dot"):
+        res[k]["launches"] = launches[k]
+    proof = proofs[1]
+    t = time.perf_counter()
+    check(plonk.verify(proof, vk, []), "plonk_20: verify rejected a proof")
+    log(f"plonk_20 verify: True in {time.perf_counter() - t:.3f} s")
+    for what, bad in tampered_plonk(proof, vk.curve).items():
+        check(not plonk.verify(bad, vk, []),
+              f"plonk_20: verify accepted a tampered {what}")
+    log("plonk_20 verify with a tampered claimed value: False; with a "
+        "tampered commitment: False")
+    return launches
+
+
+def times_ff_ops(res, put, rng, n=1 << 20):
+    """K10-K13 at plonk_20's shapes (N = 2^20; K11 also at the openings'
+    2N), each against its plain version on the same inputs. Bounds: K10
+    the bytes (two reads and a write, or one read and a write with the
+    broadcast operand); K11 three products an element (the trick's least
+    work; its Fermat inverses a block not counted); K12 n - 1 products;
+    K13 n products (its adds not counted); each against its bytes."""
+    from gnark_tpu_torch.ff import get_ff, ops
+    fr = get_ff("bn254_fr")
+    mul = MUL_OPS["mul"]
+    a, b = rand_words(fr, n, rng), rand_words(fr, n, rng)
+    for sfx, bb, nb in (("", b, 3 * n * 32), ("_bcast", b[:1], 2 * n * 32)):
+        ms, got = timed(lambda: ops.add(fr, a, bb))
+        pms, want = timed(lambda: ops.add_plain(fr, a, bb), 3)
+        put("ff_addsub", sfx, [n, 8], ms, pms, nb, 0, max_abs(got, want))
+    ms, got = timed(lambda: ops.dot(fr, a, b))
+    pms, want = timed(lambda: ops.dot_plain(fr, a, b), 3)
+    put("dot", "", [n, 8], ms, pms, 2 * n * 32 + 32, n * mul,
+        max_abs(got, want))
+    ms, got = timed(lambda: ops.scan_mul(fr, a))
+    pms, want = timed(lambda: ops.scan_mul_plain(fr, a), 3)
+    put("scan_mul", "", [n, 8], ms, pms, 2 * n * 32, (n - 1) * mul,
+        max_abs(got, want))
+    for sfx, m in (("", n), ("_2n", 2 * n)):
+        x = rand_words(fr, m, rng) if m != n else a
+        ms, got = timed(lambda: ops.batch_inv(fr, x))
+        pms, want = timed(lambda: ops.batch_inv_plain(fr, x), 3)
+        put("batch_inv", sfx, [m, 8], ms, pms, 2 * m * 32, 3 * m * mul,
+            max_abs(got, want))
+    del a, b, x, got, want
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "mont_mul": ("gnark_tpu_torch/csrc/mont_mul.cu",
@@ -1968,6 +2211,21 @@ KERNELS = {
                      "gnark_tpu/ec/weierstrass.py:164 jac_to_affine (XLA "
                      "f.inv) over gnark_tpu/ff/pallas_ops.py:34 mul_p's "
                      "product"),
+    "ff_addsub": ("gnark_tpu_torch/csrc/ff_ops.cu",
+                  "none: gnark_tpu/ff/mont.py:201 FF.add and :206 FF.sub "
+                  "(XLA) over whole columns, e.g. "
+                  "gnark_tpu/backend/plonk_device.py:327 _numerator_t"),
+    "batch_inv": ("gnark_tpu_torch/csrc/ff_ops.cu",
+                  "none: gnark_tpu/ff/mont.py:330 FF.batch_inv (XLA "
+                  "associative scans and a Fermat inverse), in "
+                  "gnark_tpu/backend/plonk_device.py:250 _s2_z, :327 "
+                  "_numerator_t, :121 open_quotient_dev"),
+    "scan_mul": ("gnark_tpu_torch/csrc/ff_ops.cu",
+                 "none: jax.lax.associative_scan(ff.mul) (XLA) at "
+                 "gnark_tpu/backend/plonk_device.py:63, :193, :265"),
+    "dot": ("gnark_tpu_torch/csrc/ff_ops.cu",
+            "none: gnark_tpu/backend/plonk_device.py:66 ff_sum over "
+            "ff.mul (XLA), dev_poly_eval:80 and _s4_evals:365"),
 }
 
 
@@ -2025,6 +2283,7 @@ def main(argv) -> int:
         phase_kernels_jac_ntt(rng, res)
         phase_kernels_ladder(rng, res)
         phase_kernels_affine(rng, res)
+        phase_kernels_ff_ops(rng, res)
         if quick:
             # the transforms and K8 / the fold at their path's shapes (a
             # g16_20 wire MSM: 2^20 + 2049 points, the class of 2^20 + 1)
@@ -2041,6 +2300,8 @@ def main(argv) -> int:
         del cs
         phase_merkle(res)
         phase_rc20(res)
+        phase_plonk_small(res)
+        phase_plonk20(res)
         phase_times(res, rng, n_pts, ladder_sc, key_cols)
         torch.cuda.synchronize()
         log(f"chip_smoke: every phase passed, "

@@ -21,8 +21,10 @@ backend/groth16/bn254/{setup,prove,verify}.go):
     commitment values are recomputed and the folded PoK is checked.
 
 Keys also come from `dummy_setup`, or from plain arrays through
-`proving_key_from_arrays`. The recursion-friendly commitment hashes
-(MiMC over an outer field) raise NotImplementedError.
+`proving_key_from_arrays`. The commitment hashes: gnark's default,
+"evm", and the recursion-friendly MiMC ones (True: over the 2-chain
+outer field; "self": over fr, coordinates as emulated limbs;
+backend/transcript).
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import numpy as np
 import torch
 
 from gnark_tpu_torch.backend import gnark_fs
+from gnark_tpu_torch.backend.transcript import (mimc_point_writes,
+                                               outer_mimc_field)
 from gnark_tpu_torch.constraint import ConstraintSystem, solve_auto
 from gnark_tpu_torch.cuda import resolve_device
 from gnark_tpu_torch.ec import curves as curves_mod
@@ -49,6 +53,7 @@ from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul, jac_to_affine
 from gnark_tpu_torch.msm.pippenger import msm_raw
 from gnark_tpu_torch.ntt import get_domain
 from gnark_tpu_torch.pairing import get_pairing
+from gnark_tpu_torch.std.hash.mimc import MiMC
 
 
 def _next_pow2(n: int) -> int:
@@ -152,9 +157,10 @@ def _hash_to_field(curve, point, recursion=False, public_committed=()) -> int:
     point bytes, then the public-committed values
     (backend/groth16/bn254/prove.go:57-58,87-96; bit-exact).
     recursion="evm": sha256(x || y) mod r, the Solidity-computable
-    variant. recursion=True or "self" (MiMC over the 2-chain outer field
-    or over fr) raise NotImplementedError: the port has no transcript
-    module nor outer-field MiMC."""
+    variant. recursion=True: MiMC over the 2-chain outer field,
+    truncated to rbits - 8 bits (std/recursion/groth16's in-circuit
+    recomputation); recursion="self": MiMC over the curve's own fr with
+    the coordinates split into emulated limbs."""
     if recursion == "evm":
         # the reference swaps HashToFieldFn for a plain evm hash when
         # targeting the contract (verify.go:157-159)
@@ -166,9 +172,16 @@ def _hash_to_field(curve, point, recursion=False, public_committed=()) -> int:
                point[0].to_bytes(nb, "big") + point[1].to_bytes(nb, "big"))
         return int.from_bytes(hashlib.sha256(raw).digest(),
                               "big") % curve.fr.modulus
-    if recursion:
+    if recursion and public_committed:
         raise NotImplementedError(
-            f"recursion={recursion!r} commitment hashes are not ported")
+            "public committed wires with recursion-friendly hashes")
+    if recursion:
+        h = MiMC(outer_mimc_field(curve, recursion))
+        h.write(int.from_bytes(b"BSB22-Groth16", "big"))
+        h.write(*mimc_point_writes(
+            curve, None if point is host.INF else point, recursion))
+        mask = (1 << (curve.fr.modulus.bit_length() - 8)) - 1
+        return h.sum() & mask
     return gnark_fs.bsb22_groth16_value(
         curve, None if point is host.INF else point,
         list(public_committed), curve.fr.modulus)
@@ -513,9 +526,9 @@ def prove(cs: ConstraintSystem, pk: ProvingKey, public, secret, rng=None,
 
     rng: a random.Random for r and s (default: the secrets module); the
     same seed as the reference's prove gives the same Proof.
-    recursion_friendly: False, or "evm" (the commitment value is
-    sha256(C) mod r and the PoKs stay one per commitment); the MiMC
-    modes raise NotImplementedError.
+    recursion_friendly: False; "evm" (the commitment value is sha256(C)
+    mod r); True or "self" (MiMC, _hash_to_field). Under any of the
+    three the PoKs stay one per commitment.
     timings: if a dict, filled with seconds per phase (solve, commit,
     upload, computeH, g1_msm, g2_msm, to_affine, combine; commit is the
     commitment hint's device MSMs, which run inside the solve and are
@@ -523,10 +536,6 @@ def prove(cs: ConstraintSystem, pk: ProvingKey, public, secret, rng=None,
     boundary for this."""
     if mesh is not None:
         raise NotImplementedError("prove(mesh=...) is not ported")
-    if pk.commitment_keys and recursion_friendly not in (False, "evm"):
-        raise NotImplementedError(
-            f"recursion_friendly={recursion_friendly!r} commitment hashes "
-            f"are not ported")
     if len(pk.commitment_keys) not in (0, len(cs.commitments)):
         raise ValueError(f"the proving key has {len(pk.commitment_keys)} "
                          f"commitment keys, the circuit "

@@ -12,7 +12,9 @@ evaluated from the solver's columns by the barycentric formula.
 squaring chains) directly in the IR; `Membership` is the Merkle
 membership circuit of examples/merkle_membership.py at any depth;
 `RangeChecked` range-checks secret 64-bit values through the shared
-lookup table of std/rangecheck, which makes one BSB22 commitment.
+lookup table of std/rangecheck, which makes one BSB22 commitment. For
+PLONK: `plonk_square_chain` builds the PLONK benchmark's SCS circuit
+in the IR, and `MimcPreimage` is examples/mimc_plonk.py's circuit.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from gnark_tpu_torch import fields
 from gnark_tpu_torch.backend import groth16
 from gnark_tpu_torch.constraint import solve_auto
 from gnark_tpu_torch.constraint.system import (ConstraintSystem,
-                                               Instruction, R1C)
+                                               Instruction, R1C, SparseR1C)
+from gnark_tpu_torch.std.hash.mimc import MiMCGadget
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.ff import get_ff
@@ -58,6 +61,37 @@ def synth_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
                             outputs=(o,)), [w])
             w = o
     return cs
+
+
+def plonk_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
+    """bench.py _secondary_plonk18's SCS circuit at any width: n_chains
+    squaring chains (x * x - o == 0) of chain_len gates, the last one
+    gate short, so that with the constant-one wire's public row N =
+    n_chains * chain_len."""
+    q = fields.BN254_FR.modulus
+    cs = ConstraintSystem(fields.BN254_FR, "scs")
+    cs.secret_names = [f"x{i}" for i in range(n_chains)]
+    for c in range(n_chains):
+        w = 1 + c
+        for _ in range(chain_len - (c == n_chains - 1)):
+            o = cs.new_internal_wire()
+            cs.sparse.append(SparseR1C(w, w, o, 0, 0, q - 1, 1, 0))
+            cs.add_instruction(
+                Instruction(kind="scs", cidx=len(cs.sparse) - 1,
+                            outputs=(o,)), [w])
+            w = o
+    return cs
+
+
+class MimcPreimage(Circuit):
+    """examples/mimc_plonk.py's circuit: MiMC(pre) == h."""
+    pre: Secret
+    h: Public
+
+    def define(self, api):
+        g = MiMCGadget(api)
+        g.write(self.pre)
+        api.assert_is_equal(g.sum(), self.h)
 
 
 class Membership(Circuit):

@@ -313,6 +313,38 @@ class FF:
         """Batched inversion via Fermat (a^(p-2)); inv(0) = 0."""
         return self.pow_bits(a, self.pm2_bits)
 
+    def scan_mul(self, a, reverse: bool = False):
+        """Inclusive prefix (suffix, reverse=True) products along the
+        first axis of an (n, n_limbs) batch: Hillis and Steele, log2(n)
+        batched products; canonical out."""
+        r = self.canon(a)
+        n, off = a.shape[0], 1
+        while off < n:
+            if reverse:
+                r = torch.cat([self.mul(r[:n - off], r[off:]), r[n - off:]])
+            else:
+                r = torch.cat([r[:off], self.mul(r[off:], r[:n - off])])
+            off *= 2
+        return r
+
+    def batch_inv(self, a):
+        """Montgomery batch inversion over the first axis (the
+        reference's FF.batch_inv): prefix and suffix product scans and
+        one Fermat inverse of the total; zeros invert to zero, as in
+        gnark's BatchInvert. Below 4 rows, Fermat alone."""
+        if a.dim() != 2 or a.shape[0] < 4:
+            return self.inv(a)
+        z = self.is_zero(self.canon(a))
+        ax = self.select(z, self.ones(a.shape[:-1], a.device), a)
+        pref = self.scan_mul(ax)
+        suf = self.scan_mul(ax, reverse=True)
+        tinv = self.inv(pref[-1:])
+        one = self.ones((1,), a.device)
+        pe = torch.cat([one, pref[:-1]])
+        se = torch.cat([suf[1:], one])
+        out = self.mul(self.mul(pe, se), tinv)
+        return self.select(z, torch.zeros_like(a), out)
+
 
 def on_words(f, op: str, *words):
     """Plain field op `op` of f (FF or FF2) on word tensors: words in,

@@ -1,0 +1,200 @@
+"""K10-K13: the field operations of the PLONK prover over word tensors.
+
+(n, nw) int32 words in Montgomery form, inputs < 2p, canonical outputs:
+
+  add, sub   K10 ff_addsub: a +- b, b the same shape or one element
+  batch_inv  K11: 1 / a elementwise, 0 -> 0 (Montgomery's trick)
+  scan_mul   K12: the inclusive prefix product a[0] * ... * a[i]
+  dot        K13: sum_i a[i] * b[i], or sum_i a[i] without b; (1, nw)
+
+None of them replaces a TPU kernel: the reference runs them as XLA ops
+(gnark_tpu/ff/mont.py FF.add / FF.sub / FF.batch_inv:330,
+jax.lax.associative_scan(ff.mul) and ff_sum in
+gnark_tpu/backend/plonk_device.py:58-77). Kernels: csrc/ff_ops.cu. On a
+CPU tensor each runs its plain version (`*_plain`, over the int64 limbs
+of ff.mont.FF); on a CUDA tensor its kernel, or an error. Each wrapper
+counts its calls in `.launches` (scan_mul and dot run a few kernels a
+call: see the source).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from gnark_tpu_torch import cuda
+from gnark_tpu_torch.ff.mont import FF
+
+SCAN_CHUNK = 8 * 256      # rows a block of K12 (GT_SCAN_E * GT_FB)
+DOT_MAXB = 1024           # K13's first-pass blocks at most (GT_DOT_MAXB)
+
+
+def _limbs(ff: FF, w):
+    return ff.canon(ff.from_words(w))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def add_plain(ff: FF, a, b):
+    return ff.to_words(ff.add(_limbs(ff, a), _limbs(ff, b)))
+
+
+def sub_plain(ff: FF, a, b):
+    return ff.to_words(ff.sub(_limbs(ff, a), _limbs(ff, b)))
+
+
+def batch_inv_plain(ff: FF, a):
+    return ff.to_words(ff.batch_inv(_limbs(ff, a)))
+
+
+def scan_mul_plain(ff: FF, a):
+    return ff.to_words(ff.scan_mul(_limbs(ff, a)))
+
+
+def dot_plain(ff: FF, a, b=None):
+    """The reference's ff_sum over ff.mul: products, then a tree of
+    sums over the rows zero-padded to a power of two."""
+    x = _limbs(ff, a)
+    if b is not None:
+        x = ff.mul(x, _limbs(ff, b))
+    m = 1 << max(x.shape[0] - 1, 0).bit_length()
+    if m != x.shape[0]:
+        x = torch.cat([x, ff.zeros((m - x.shape[0],), x.device)])
+    while m > 1:
+        m //= 2
+        x = ff.add(x[:m], x[m:2 * m])
+    return ff.to_words(x[:1])
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(ff: FF, what: str, a, b=None, bcast=False):
+    if a.dim() != 2 or a.shape[1] != ff.nw:
+        raise ValueError(f"{what}: a must be (n, {ff.nw}) words, got "
+                         f"{tuple(a.shape)}")
+    if b is not None:
+        ok = (1, a.shape[0]) if bcast else (a.shape[0],)
+        if b.dim() != 2 or b.shape[1] != ff.nw or b.shape[0] not in ok:
+            raise ValueError(f"{what}: b has shape {tuple(b.shape)}, a "
+                             f"{tuple(a.shape)}")
+        if b.device != a.device:
+            raise ValueError(f"{what}: operands on different devices")
+
+
+@functools.lru_cache(maxsize=None)
+def _fn(name: str):
+    sig = {"gt_ff_addsub": (3, [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p]),
+           "gt_batch_inv": (2, [ctypes.c_longlong, ctypes.c_void_p]),
+           "gt_scan_mul": (3, [ctypes.c_longlong, ctypes.c_void_p]),
+           "gt_dot": (4, [ctypes.c_longlong, ctypes.c_void_p])}[name]
+    return cuda.bind("ff_ops", name, *sig)
+
+
+def ff_addsub(ff: FF, a, b, sub: bool):
+    """K10: a - b if sub else a + b; b (n, nw) or one element (1, nw)."""
+    what = ("add", "sub")[sub]
+    _check(ff, what, a, b, bcast=True)
+    if a.device.type == "cpu":
+        return (sub_plain if sub else add_plain)(ff, a, b)
+    n = a.shape[0]
+    a = cuda.dev_words(a, what)
+    b = cuda.dev_words(b, what)
+    out = torch.empty_like(a)
+    rc = _fn("gt_ff_addsub")(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                             int(b.shape[0] == 1 and n != 1), int(sub),
+                             cuda.field_consts(ff.p.name).ctypes.data,
+                             cuda.stream(a))
+    cuda.check(rc, what)
+    ff_addsub.launches += 1
+    return out
+
+
+ff_addsub.launches = 0
+
+
+def add(ff: FF, a, b):
+    return ff_addsub(ff, a, b, False)
+
+
+def sub(ff: FF, a, b):
+    return ff_addsub(ff, a, b, True)
+
+
+def batch_inv(ff: FF, a):
+    """1 / a for each row; zero rows give zero."""
+    _check(ff, "batch_inv", a)
+    if a.device.type == "cpu":
+        return batch_inv_plain(ff, a)
+    a = cuda.dev_words(a, "batch_inv")
+    out = torch.empty_like(a)
+    rc = _fn("gt_batch_inv")(a.data_ptr(), out.data_ptr(), a.shape[0],
+                             cuda.field_consts(ff.p.name).ctypes.data,
+                             cuda.stream(a))
+    cuda.check(rc, "batch_inv")
+    batch_inv.launches += 1
+    return out
+
+
+batch_inv.launches = 0
+
+
+def scan_scratch_rows(n: int) -> int:
+    """Rows of K12's scratch for n rows: at each level the blocks'
+    products, then, past one block, their scan and the next level's."""
+    m = -(-n // SCAN_CHUNK)
+    return m + (m + scan_scratch_rows(m) if m > 1 else 0)
+
+
+def scan_mul(ff: FF, a):
+    """Inclusive prefix products: out[i] = a[0] * ... * a[i]. On the
+    card: a block scan of 2048 rows a block, the same over the blocks'
+    products (recursively), then a fix-up pass; 3 kernels at 2^20."""
+    _check(ff, "scan_mul", a)
+    if a.device.type == "cpu":
+        return scan_mul_plain(ff, a)
+    n = a.shape[0]
+    a = cuda.dev_words(a, "scan_mul")
+    out = torch.empty_like(a)
+    scratch = torch.empty((max(scan_scratch_rows(n), 1), ff.nw),
+                          dtype=torch.int32, device=a.device)
+    rc = _fn("gt_scan_mul")(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                            n, cuda.field_consts(ff.p.name).ctypes.data,
+                            cuda.stream(a))
+    cuda.check(rc, "scan_mul")
+    scan_mul.launches += 1
+    return out
+
+
+scan_mul.launches = 0
+
+
+def dot(ff: FF, a, b=None):
+    """sum_i a[i] * b[i] (b None: sum_i a[i]) as (1, nw) words. On the
+    card: block sums (at most 1024 blocks), then one block over them."""
+    _check(ff, "dot", a, b)
+    if a.shape[0] == 0:
+        raise ValueError("dot: no rows")
+    if a.device.type == "cpu":
+        return dot_plain(ff, a, b)
+    a = cuda.dev_words(a, "dot")
+    b = None if b is None else cuda.dev_words(b, "dot")
+    out = torch.empty((1, ff.nw), dtype=torch.int32, device=a.device)
+    scratch = torch.empty((DOT_MAXB, ff.nw), dtype=torch.int32,
+                          device=a.device)
+    rc = _fn("gt_dot")(a.data_ptr(), None if b is None else b.data_ptr(),
+                       out.data_ptr(), scratch.data_ptr(), a.shape[0],
+                       cuda.field_consts(ff.p.name).ctypes.data,
+                       cuda.stream(a))
+    cuda.check(rc, "dot")
+    dot.launches += 1
+    return out
+
+
+dot.launches = 0

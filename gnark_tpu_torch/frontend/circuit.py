@@ -120,9 +120,6 @@ def compile_circuit(circuit: Circuit, field: FieldParams,
     constraint/hint (the reference errors by DEFAULT unless
     IgnoreUnconstrainedInputs is passed; here the check is opt-in
     because dummy anchor fields are idiomatic in the test corpus)."""
-    if builder_cls is not R1CSBuilder:
-        raise NotImplementedError(
-            "only R1CS circuits are supported until PLONK is ported")
     builder = builder_cls(field)
 
     def alloc_public(path, get, set_):

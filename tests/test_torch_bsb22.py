@@ -6,7 +6,9 @@
     does, and verify accepts a committed proof made with the trapdoor of
     those scalars and refuses tampered ones (commitment and PoK swapped,
     a tampered PoK, missing commitments, a wrong PoK count);
-  * the recursion-friendly hash modes raise NotImplementedError;
+  * the recursion-friendly hash modes (MiMC, True and "self") give the
+    reference's values, and a proof made under the default hash fails
+    verification under them;
   * slow tier: on a key carried across from the reference's setup, the
     port's prove gives the reference's Proof byte for byte (commit
     circuit and lookup circuit of tests/test_groth16.py); the port's
@@ -149,8 +151,11 @@ def test_pac_indices_and_hash_to_field_match_reference():
         assert groth16._hash_to_field(CURVE, pt, "evm") == \
             ref_groth16._hash_to_field(CURVE, pt, "evm")
     for mode in (True, "self"):
+        for pt in (P, host.INF):
+            assert groth16._hash_to_field(CURVE, pt, mode) == \
+                ref_groth16._hash_to_field(CURVE, pt, mode)
         with pytest.raises(NotImplementedError):
-            groth16._hash_to_field(CURVE, P, mode)
+            groth16._hash_to_field(CURVE, P, mode, public_committed=(1,))
     with pytest.raises(NotImplementedError):
         groth16._hash_to_field(CURVE, P, "evm", public_committed=(1,))
 
@@ -231,9 +236,10 @@ def test_setup_scalars_and_verify_with_commitment():
             dict(poks=[pok, pok])):
         assert not groth16.verify(groth16.Proof(**{**proof.__dict__, **bad}),
                                   vk, pub)
-    with pytest.raises(NotImplementedError):
-        groth16.verify(groth16.Proof(**{**proof.__dict__}), vk, pub,
-                       recursion_friendly=True)
+    # the MiMC commitment hash gives another commitment value
+    for mode in (True, "self"):
+        assert not groth16.verify(groth16.Proof(**{**proof.__dict__}), vk,
+                                  pub, recursion_friendly=mode)
 
 
 def _ref_key_arrays(pk):

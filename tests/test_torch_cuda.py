@@ -1,8 +1,9 @@
-"""The CUDA kernels K1-K9 (K1 with its fused (a*b - c)*d and affine
+"""The CUDA kernels K1-K13 (K1 with its fused (a*b - c)*d and affine
 entry points, K2 as whole four-step transforms, K5 as whole transforms,
 K8 with its group fold) and the fixed-base ladder against their plain
-PyTorch versions, the scan-path MSM against the bucket path, and a
-chunked bucket MSM against the single-shot one, on the card.
+PyTorch versions, the scan-path MSM against the bucket path, a
+chunked bucket MSM against the single-shot one, and a small PLONK proof
+made on the card against the same proof made on the CPU.
 Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor gnark_tpu, so it also runs where JAX
@@ -33,6 +34,7 @@ from gnark_tpu_torch.ec.jac_ec import (jac_add, jac_add_mixed,
 from gnark_tpu_torch.ec.proj_ec import (_limbs, proj_add, proj_add_plain,
                                         proj_double, proj_double_plain)
 from gnark_tpu_torch.ff import get_ff
+from gnark_tpu_torch.ff import ops as ff_ops
 from gnark_tpu_torch.ff.mont_mul import (mont_mul, mont_mul_plain,
                                          mont_mul_sub_mul,
                                          mont_mul_sub_mul_plain)
@@ -87,6 +89,38 @@ def test_mont_mul(dev, name):
     a, b = _words(f, 4093, 1, dev), _words(f, 4093, 2, dev)
     for bb in (b, b[:1]):
         assert torch.equal(mont_mul(f, a, bb), mont_mul_plain(f, a, bb))
+
+
+def _lazy_words(ff, n, seed, dev):
+    """n elements in Montgomery form, every third one lifted to [p, 2p)
+    (the raw words of x + p), a few zeros (0 and p) among them."""
+    q = ff.p.modulus
+    rng = random.Random(seed)
+    vals = [rng.randrange(q) * ff.p.R_mod % q for _ in range(n)]
+    for i in range(0, n, 97):
+        vals[i] = 0
+    raw = [v + q if i % 3 == 1 else v for i, v in enumerate(vals)]
+    buf = b"".join(v.to_bytes(4 * ff.nw, "little") for v in raw)
+    return torch.from_numpy(np.frombuffer(buf, dtype=np.int32).reshape(
+        n, ff.nw).copy()).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 5, 2047, 2049, 1 << 16, 70001])
+def test_ff_ops(dev, n):
+    """K10-K13 against their plain versions on lazy inputs with zeros:
+    one row, n not a power of two, K12 across many blocks (2048 rows a
+    block), K13 past one block of its first pass."""
+    f = get_ff("bn254_fr")
+    a, b = _lazy_words(f, n, 1, dev), _lazy_words(f, n, 2, dev)
+    for bb in (b, b[:1]):
+        assert torch.equal(ff_ops.add(f, a, bb), ff_ops.add_plain(f, a, bb))
+        assert torch.equal(ff_ops.sub(f, a, bb), ff_ops.sub_plain(f, a, bb))
+    assert torch.equal(ff_ops.batch_inv(f, a), ff_ops.batch_inv_plain(f, a))
+    assert torch.equal(ff_ops.scan_mul(f, a), ff_ops.scan_mul_plain(f, a))
+    assert torch.equal(ff_ops.dot(f, a, b), ff_ops.dot_plain(f, a, b))
+    assert torch.equal(ff_ops.dot(f, a), ff_ops.dot_plain(f, a))
+    z = torch.zeros_like(a)
+    assert torch.equal(ff_ops.batch_inv(f, z), z)
 
 
 @pytest.mark.parametrize("name", ["bn254_fp", "bn254_fr"])
@@ -609,3 +643,34 @@ def test_jac_fold(dev, g2):
         i = w * B + b
         assert _to_affine_host(ff, hf, "jac",
                                tuple(a[i:i + 1] for a in got)) == want
+
+
+def test_plonk_card_equals_cpu(dev):
+    """The cubic PLONK (tests/test_torch_plonk.py's circuit) set up and
+    proved on the card, and proved again on the CPU on the same keys
+    moved there: the same proof bytes; verify accepts it."""
+    import dataclasses
+
+    from gnark_tpu_torch import fields
+    from gnark_tpu_torch.backend import kzg, plonk
+    from gnark_tpu_torch.frontend import (Circuit, Public, Secret,
+                                          compile_circuit, witness)
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+
+    class Cubic(Circuit):
+        x: Secret
+        y: Public
+
+        def define(self, api):
+            x3 = api.mul(self.x, self.x, self.x)
+            api.assert_is_equal(api.add(x3, self.x, 5), self.y)
+
+    cs = compile_circuit(Cubic(), fields.BN254_FR, builder_cls=SCSBuilder)
+    srs = kzg.setup_srs("bn254", 64, rng=random.Random(33), device=dev)
+    pk, vk = plonk.setup(cs, srs)
+    pub, sec = witness(Cubic(x=3, y=35), cs)
+    got = plonk.prove(cs, pk, pub, sec, rng=random.Random(1), device=dev)
+    want = plonk.prove(cs, pk.to("cpu"), pub, sec, rng=random.Random(1),
+                       device="cpu")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert plonk.verify(got, vk, pub)

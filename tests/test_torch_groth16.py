@@ -72,13 +72,9 @@ def test_compile_cubic_same_r1cs():
         [(i.kind, i.cidx, i.outputs) for i in ref.instructions]
     assert witness(Cubic(x=3, y=35), cs) == \
         ref_witness(RefCubic(x=3, y=35), ref)
-    from gnark_tpu_torch.frontend.r1cs import R1CSBuilder
-
-    class Other(R1CSBuilder):
-        pass
-
-    with pytest.raises(NotImplementedError):
-        compile_circuit(Cubic(), fields.BN254_FR, builder_cls=Other)
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+    scs = compile_circuit(Cubic(), fields.BN254_FR, builder_cls=SCSBuilder)
+    assert scs.kind == "scs" and not scs.r1cs and scs.sparse
 
 
 @pytest.mark.slow
@@ -119,14 +115,14 @@ def test_prove_rejects_what_is_not_ported():
             groth16.dummy_setup(cs, "bn254")       # default: the card
         with pytest.raises(RuntimeError):
             groth16.prove(cs, pk, pub, sec)
-    # a commitment key the circuit has no commitment for; the MiMC
-    # commitment hashes of recursion-friendly proofs
+    # a commitment key the circuit has no commitment for, under the
+    # default and the MiMC commitment hashes (ported, tests/
+    # test_torch_plonk.py::test_groth16_recursion_hashes_equal_reference)
     pk.commitment_keys = [object()]
-    with pytest.raises(ValueError):
-        groth16.prove(cs, pk, pub, sec, device="cpu")
-    with pytest.raises(NotImplementedError):
-        groth16.prove(cs, pk, pub, sec, recursion_friendly=True,
-                      device="cpu")
+    for mode in (False, True, "self"):
+        with pytest.raises(ValueError):
+            groth16.prove(cs, pk, pub, sec, recursion_friendly=mode,
+                          device="cpu")
 
 
 @pytest.mark.slow

@@ -5,9 +5,11 @@
   * verify accepts a proof made with the trapdoor of that setup and
     rejects the probes of the verify skill (wrong public value, fields of
     two proofs mixed, a point off the curve, a public-count mismatch);
-    a vk with a commitment refuses a proof without one, and the
-    recursion-friendly commitment hashes raise NotImplementedError
-    (BSB22 commitments themselves: tests/test_torch_bsb22.py);
+    a vk with a commitment refuses a proof without one, and with the
+    recursion-friendly commitment hashes refuses a bogus committed
+    proof; those hashes raise NotImplementedError on public committed
+    wires, as the reference's (BSB22 commitments themselves:
+    tests/test_torch_bsb22.py);
   * the copied ate pairing gives the reference's GT value;
   * the Merkle membership circuit compiles to the reference's R1CS;
   * slow tier: the port's keys equal the reference setup's under the
@@ -155,8 +157,9 @@ class Committed(Circuit):
 
 
 def test_commitments_raise(cubic):
-    """What is left of the commitment raises: the MiMC hash modes of
-    recursion-friendly proofs."""
+    """What is left of the commitment raises: public committed wires
+    under the MiMC hash modes of recursion-friendly proofs (the modes
+    themselves are ported: verify refuses a bogus committed proof)."""
     cs = compile_circuit(Committed(), fields.BN254_FR)
     assert cs.commitments
     _, _, vk, _ = cubic
@@ -167,10 +170,10 @@ def test_commitments_raise(cubic):
     cm = groth16.Proof(ar=CURVE.g1, krs=CURVE.g1, bs=CURVE.g2,
                        commitments=[CURVE.g1], poks=[CURVE.g1])
     for mode in (True, "self"):
+        assert not groth16.verify(cm, vk2, [], recursion_friendly=mode)
         with pytest.raises(NotImplementedError):
-            groth16.verify(cm, vk2, [], recursion_friendly=mode)
-        with pytest.raises(NotImplementedError):
-            groth16._hash_to_field(CURVE, CURVE.g1, mode)
+            groth16._hash_to_field(CURVE, CURVE.g1, mode,
+                                   public_committed=(1,))
 
 
 def test_ate_copy_matches_reference():
