@@ -27,8 +27,11 @@ Phases (any failure exits non-zero):
      that take the complete add's branches (0, 1, r - 1, r, r + 2);
      K10 ff_addsub, K11 batch_inv, K12 scan_mul and K13 dot (PLONK's
      field operations) at n = 1, 5, 2049, 2^16 and 2^20 on lazy inputs
-     with zeros (K11 also on all zeros, K12 also at 2^22 + 1: three
-     levels);
+     with zeros (K11 also on all zeros, a tile of zeros, one nonzero row,
+     either side of its tiles and at 2^21; K12 with a zero inside,
+     either side of its tile and up to 2^24 + 3 rows: the look-back
+     across 2,049 tiles), and the CUDA kernels one call of each starts
+     (the profiler's device trace: K11 3, K12 1);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
@@ -85,7 +88,7 @@ Phases (any failure exits non-zero):
      the device as the last line.
 
 Option: --quick stops after phase 3, with phase 6's four-step
-transform and K8 / jac_fold timings.
+transform, K8 / jac_fold and K10-K13 timings.
 """
 
 from __future__ import annotations
@@ -1939,12 +1942,85 @@ def rand_dev_words(n, lw, gen):
 # PLONK: K10-K13 on the card, the mimc_plonk / rc_plonk / plonk_20 cells
 # ---------------------------------------------------------------------------
 
+def lift_p(ff, w, rows):
+    """w with p added to the given rows (each < p), on the card: inputs
+    in [p, 2p) made without host ints."""
+    import torch
+    x = w[rows].to(torch.int64) & 0xFFFFFFFF
+    p = torch.tensor([(ff.p.modulus >> (32 * i)) & 0xFFFFFFFF
+                      for i in range(ff.nw)], device=w.device)
+    carry = torch.zeros_like(x[:, 0])
+    for i in range(ff.nw):
+        s = x[:, i] + p[i] + carry
+        x[:, i], carry = s & 0xFFFFFFFF, s >> 32
+    w = w.clone()
+    w[rows] = x.to(torch.int32)
+    return w
+
+
+def dev_rows(ff, n, gen, zeros=()):
+    """n random canonical rows made on the card, every third one lifted
+    into [p, 2p), the given rows zero (0 and p in turn)."""
+    import torch
+    w = lift_p(ff, rand_dev_words(n, ff.nw, gen),
+               torch.arange(1, n, 3, device=DEV))
+    z = torch.as_tensor(list(zeros), dtype=torch.int64, device=DEV)
+    w[z] = 0
+    w[z[::2]] = raw_words([ff.p.modulus])
+    return w
+
+
+def scan_plain(ff, a, chunk=1 << 22):
+    """scan_mul_plain over pieces of `chunk` rows, each piece times the
+    prefix before it by the plain product: the same function in pieces
+    (the plain product holds 256 float64 a row, so 2^24 rows at once
+    would need 32 GB a temporary)."""
+    import torch
+    from gnark_tpu_torch.ff import ops
+    from gnark_tpu_torch.ff.mont_mul import mont_mul_plain
+    out, carry = [], None
+    for s in range(0, a.shape[0], chunk):
+        y = ops.scan_mul_plain(ff, a[s:s + chunk])
+        if carry is not None:
+            y = mont_mul_plain(ff, y, carry)
+        carry = y[-1:]
+        out.append(y)
+    return torch.cat(out)
+
+
+def cuda_kernels(fn):
+    """The names of the CUDA kernels one call of fn starts on the card,
+    by the profiler's device trace ([] if it saw no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name.split("(")[0].split()[-1] for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# the CUDA kernels one call of each starts at 2^20 rows
+FF_OPS_KERNELS = {"ff_addsub": ("addsub_kernel",),
+                  "batch_inv": ("inv_up_kernel", "inv_mid_kernel",
+                                "inv_down_kernel"),
+                  "scan_mul": ("scan_kernel",),
+                  "dot": ("dot_kernel", "dot_kernel")}
+
+
 def phase_kernels_ff_ops(rng, res):
     """K10-K13 against their plain versions: one row, rows not a power of
     two, 2^16 and 2^20 rows, a third of each operand in [p, 2p) and a
-    zero row in every 97 (0 and p); K11 on all zeros; K12 across 512
-    blocks (2^20) and three levels (2^22 + 1); K13 past one first-pass
-    block and at n = 1."""
+    zero row in every 97 (0 and p); K11 on all zeros, a whole tile of
+    zero rows, one nonzero row among zeros, at its least tile (2048 rows)
+    - 1, + 0, + 1, at 256 and 257 such tiles (its one-block pass: 256
+    threads) and at 2^21 (the openings: longer tiles); K12 without zeros
+    at its tile (8192 rows) - 1, + 0, + 1, 2^20, 2^22 + 1 and 2^24 + 3
+    rows (2,049 tiles: the look-back over thousands of tiles and many
+    waves), and with one zero inside (every later prefix 0); K13 past one
+    first-pass block and at n = 1. Then the CUDA kernels one call of each
+    starts, by the profiler."""
     import torch
     from gnark_tpu_torch.ff import get_ff, ops
     fr = get_ff("bn254_fr")
@@ -1972,15 +2048,56 @@ def phase_kernels_ff_ops(rng, res):
         agree("scan_mul", ops.scan_mul(fr, a), ops.scan_mul_plain(fr, a), n)
         agree("dot", ops.dot(fr, a, b), ops.dot_plain(fr, a, b), n)
         agree("dot", ops.dot(fr, a), ops.dot_plain(fr, a), n)
-    n = (1 << 22) + 1
-    a = rand_words(fr, n, rng, lazy=n // 3)
-    agree("scan_mul", ops.scan_mul(fr, a), ops.scan_mul_plain(fr, a), n)
     del a, b, z
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9)
+    T = ops.INV_TILE
+    inv_cases = {"a tile of zeros": dev_rows(fr, 3 * T + 5, gen,
+                                             range(T, 2 * T)),
+                 "all zeros": dev_rows(fr, 2 * T + 3, gen, range(2 * T + 3)),
+                 "one nonzero row": dev_rows(fr, 5000, gen, [
+                     i for i in range(5000) if i != 3001])}
+    for n in (T - 1, T, T + 1, 256 * T, 256 * T + 1, 1 << 21):
+        inv_cases[n] = dev_rows(fr, n, gen, range(7, n, 997))
+    for what, a in inv_cases.items():
+        agree("batch_inv", ops.batch_inv(fr, a), ops.batch_inv_plain(fr, a),
+              what)
+    T = ops.SCAN_TILE
+    scan_cases = {"a zero inside": dev_rows(fr, 5 * T + 7, gen,
+                                            [3 * T + 100])}
+    for n in (T - 1, T, T + 1, 1 << 20, (1 << 22) + 1, (1 << 24) + 3):
+        scan_cases[n] = dev_rows(fr, n, gen)
+    for what, a in scan_cases.items():
+        agree("scan_mul", ops.scan_mul(fr, a), scan_plain(fr, a), what)
+    del inv_cases, scan_cases, a
     for k, v in err.items():
         res[k]["max_abs_err"] = v
     log("K10 ff_addsub, K11 batch_inv, K12 scan_mul, K13 dot: n = 1, 5, "
-        "2049, 2^16, 2^20 (and K12 at 2^22 + 1) with lazy inputs and zeros "
-        "bit-exact against their plain versions")
+        "2049, 2^16, 2^20 with lazy inputs and zeros; K11 on a tile of "
+        "zeros, all zeros, one nonzero row, n = 2047, 2048, 2049, 2^19, "
+        "2^19 + 1, 2^21; K12 with a zero inside and at n = 8191, 8192, "
+        "8193, 2^20, 2^22 + 1, 2^24 + 3: bit-exact against their plain "
+        "versions")
+    a = rand_words(fr, 1 << 20, rng)
+    calls = {"ff_addsub": lambda: ops.add(fr, a, a),
+             "batch_inv": lambda: ops.batch_inv(fr, a),
+             "scan_mul": lambda: ops.scan_mul(fr, a),
+             "dot": lambda: ops.dot(fr, a, a)}
+    seen = {k: cuda_kernels(fn) for k, fn in calls.items()}
+    if not any(seen.values()):
+        log("CUDA kernels a call of K10-K13: not measured (the profiler "
+            "saw no device activity)")
+        return
+    counts = {}
+    for k, names in seen.items():
+        ours = [m for m in names if m in FF_OPS_KERNELS[k]]
+        counts[k] = len(ours)
+        check(sorted(ours) == sorted(FF_OPS_KERNELS[k]),
+              f"{k}: one call at 2^20 started {ours}, not "
+              f"{FF_OPS_KERNELS[k]}")
+    log("CUDA kernels one call starts at 2^20 (profiler): "
+        + json.dumps(counts) + "; everything the profiler saw: "
+        + json.dumps(seen))
 
 
 def tampered_plonk(proof, curve):
@@ -2065,6 +2182,7 @@ def phase_plonk20(res):
     from gnark_tpu_torch.backend import kzg, plonk
     from gnark_tpu_torch.backend.groth16_check import plonk_square_chain
     from gnark_tpu_torch.backend.plonk_device import RHO_MIN_LOG
+    from gnark_tpu_torch.ff import ops
     from gnark_tpu_torch.msm.fixed_base import affine_words, batch_scalar_mul
     t = time.perf_counter()
     cs = plonk_square_chain(PLONK_CHAINS, PLONK_LEN)
@@ -2096,11 +2214,18 @@ def phase_plonk20(res):
     proofs = []
     for i in range(3):
         tm = {}
+        was = (ops.batch_inv.launches, ops.scan_mul.launches)
         t = time.perf_counter()
         proofs.append(plonk.prove(cs, pk, [], sec, rng=random.Random(4 + i),
                                   timings=tm, device=DEV))
         tm["total"] = time.perf_counter() - t
-        log(f"plonk_20 prove {i} (s): {fmt_times(tm)}")
+        calls = (ops.batch_inv.launches - was[0],
+                 ops.scan_mul.launches - was[1])
+        log(f"plonk_20 prove {i} (s): {fmt_times(tm)}; batch_inv, "
+            f"scan_mul calls: {calls}")
+        if i:       # the steady proves (the first also builds the domains)
+            check(calls == (7, 8), f"plonk_20 prove {i}: batch_inv and "
+                  f"scan_mul called {calls} times, not (7, 8)")
     launches = {wr.__name__: wr.launches for wr in wrappers}
     log("launches during 3 plonk_20 proves: " + json.dumps(launches))
     for k in ("ff_addsub", "batch_inv", "scan_mul", "dot", "mont_mul",
@@ -2129,8 +2254,13 @@ def times_ff_ops(res, put, rng, n=1 << 20):
     2N), each against its plain version on the same inputs. Bounds: K10
     the bytes (two reads and a write, or one read and a write with the
     broadcast operand); K11 three products an element (the trick's least
-    work; its Fermat inverses a block not counted); K12 n - 1 products;
-    K13 n products (its adds not counted); each against its bytes."""
+    work; its one inversion a call, ~600 divsteps, not counted); K12 the
+    larger of its 64 B an element and n - 1 products (a sequential
+    scan's work; the kernel does two products an element, 2n products'
+    time logged beside); K13 n products (its adds not counted); each
+    against its bytes. Times are CUDA-event times of the wrapper's call,
+    its host work before the launch included (ff_ops_times.py gives
+    K11's and K12's device time by kernel)."""
     from gnark_tpu_torch.ff import get_ff, ops
     fr = get_ff("bn254_fr")
     mul = MUL_OPS["mul"]
@@ -2147,6 +2277,9 @@ def times_ff_ops(res, put, rng, n=1 << 20):
     pms, want = timed(lambda: ops.scan_mul_plain(fr, a), 3)
     put("scan_mul", "", [n, 8], ms, pms, 2 * n * 32, (n - 1) * mul,
         max_abs(got, want))
+    log(f"scan_mul {[n, 8]}: two products an element (the kernel's work) "
+        f"{bound_ms(0, 2 * n * mul, put.rate)[0]:.4f} ms at the card's "
+        f"product rate")
     for sfx, m in (("", n), ("_2n", 2 * n)):
         x = rand_words(fr, m, rng) if m != n else a
         ms, got = timed(lambda: ops.batch_inv(fr, x))
@@ -2290,6 +2423,7 @@ def main(argv) -> int:
             put = make_put(res, int_mul_rate())
             times_fourstep(res, put, rng, 1 << 20)
             times_k8(put, (1 << 20) + 1)
+            times_ff_ops(res, put, rng)
             log(json.dumps({"kernels": list(res.values())}))
             log(smi)
             return 0

@@ -16,22 +16,49 @@
 // Bound on this card:
 //  * K10 by bytes: 96 B an element (two reads, a write), ~30 us at 2^20;
 //  * K11 by operations: three products an element (the prefix, then the
-//    inverse and the running inverse) plus one Fermat inverse a block;
-//    what bounds it here is that inverse's latency (253 squarings and
-//    109 products in a row on one thread), so the launch is one wave:
-//    each block takes n / (blocks of one wave) elements and inverts once;
-//  * K12 by operations: one product an element for the local prefix, one
-//    for the block's prefix, one for the fix-up of earlier blocks;
+//    inverse and the running inverse), one inversion a call. Three
+//    launches: pass 1 (tiles of E GT_FB rows, E the least power of two
+//    from GT_INV_E that fits the tiles in one wave) writes each thread's
+//    prefixes of its nonzero rows and the tile's product; pass 2, one
+//    block, inverts the m tiles' products by the same trick around one
+//    by_inv (Bernstein-Yang, csrc/mont.cuh) of their total, on one
+//    non-inlined product (its code runs once a call, cold); pass 3 gives
+//    each thread the inverse of its product (in-warp prefix and suffix
+//    scans by shuffles, the same over the warps) and walks its rows
+//    backward. Rows go to threads strided (neighbouring threads,
+//    neighbouring rows), so every load is coalesced. What bounds it
+//    here: the products' throughput (about 4.2 an element with the
+//    in-block scans and reduction), and pass 2's latency;
+//  * K12 by bytes: 64 B an element (a read, a write), ~20 us at 2^20; its
+//    two products an element take ~33 us at the card's product rate. One
+//    launch, a single-pass scan with decoupled look-back (Merrill and
+//    Garland, "Single-pass Parallel Prefix Scan with Decoupled
+//    Look-back", NVIDIA 2016): tiles of GT_SCAN_E GT_SCAN_T rows taken in
+//    order by an atomic ticket; each thread's GT_SCAN_E consecutive rows
+//    are read twice (up: their product; down: the running product),
+//    which measured faster than staging a tile through shared memory
+//    (that held fewer blocks a multiprocessor and took more products a
+//    row); the tile's product and, once the earlier tiles' are known,
+//    its inclusive prefix are published beside a flag;
 //  * K13 by operations at one product an element, and by bytes (64 B an
 //    element); the sum is a tree in shared memory, then one block over
 //    the blocks' sums.
 // Every element is one 32-byte sector, so any row order reads whole
-// sectors; K10 and K13 put neighbouring threads on neighbouring rows.
+// sectors; K10, K11 and K13 put neighbouring threads on neighbouring
+// rows, K12 each thread on consecutive rows (lanes 512 B apart, every
+// sector read whole).
 #include "mont.cuh"
 
-#define GT_FB 256          // threads a block, K11 to K13
-#define GT_SCAN_E 8        // elements a thread in K12 (a block: 2048)
-#define GT_DOT_MAXB 1024   // blocks of K13's first pass at most
+#define GT_FB 256                    // threads a block, K10, K11, K13
+#define GT_WARPS (GT_FB / 32)
+#define GT_WARPS_LOG 3
+#define GT_INV_E 8                   // K11's least rows a thread
+#define GT_SCAN_T 512                // threads a block, K12
+#define GT_SCAN_E 16                 // rows a thread in K12
+#define GT_SCAN_C (GT_SCAN_E * GT_SCAN_T)  // rows a tile of K12 (8192)
+static_assert((1 << GT_WARPS_LOG) == GT_WARPS, "GT_WARPS_LOG");
+#define GT_DOT_MAXB 1024             // blocks of K13's first pass at most
+#define GT_FULL 0xFFFFFFFFu
 
 __global__ void addsub_kernel(const uint32_t* __restrict__ a,
                               const uint32_t* __restrict__ b,
@@ -45,61 +72,211 @@ __global__ void addsub_kernel(const uint32_t* __restrict__ a,
   st(out + i * GT_NW, canon(sub ? sub2p(x, y, F) : add2p(x, y, F), F));
 }
 
-// In-block inclusive scan of s[0 .. GT_FB) by products, forward (s[t] =
-// s[0] ... s[t]) or backward (s[t] = s[t] ... s[GT_FB - 1]); Hillis and
-// Steele, log2(GT_FB) steps.
-__device__ __forceinline__ void block_scan(Fp* s, bool backward,
-                                           const FieldC& F) {
-  const int t = threadIdx.x;
+// ---------------------------------------------------------------------
+// products across the lanes of a warp (every lane of the warp calls)
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ Fp shfl_up(const Fp& a, int d) {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) r.w[i] = __shfl_up_sync(GT_FULL, a.w[i], d);
+  return r;
+}
+
+__device__ __forceinline__ Fp shfl_down(const Fp& a, int d) {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i)
+    r.w[i] = __shfl_down_sync(GT_FULL, a.w[i], d);
+  return r;
+}
+
+__device__ __forceinline__ Fp shfl_xor(const Fp& a, int d) {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i)
+    r.w[i] = __shfl_xor_sync(GT_FULL, a.w[i], d);
+  return r;
+}
+
+__device__ __forceinline__ Fp shfl_idx(const Fp& a, int lane) {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) r.w[i] = __shfl_sync(GT_FULL, a.w[i], lane);
+  return r;
+}
+
+// Inclusive product scan over lanes [0, width), width a power of two:
+// lane l gets lanes 0 .. l (forward) or l .. width - 1 (backward).
+__device__ __forceinline__ Fp warp_scan(Fp v, bool backward, int width,
+                                        const FieldC& F) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll 1
-  for (int off = 1; off < GT_FB; off <<= 1) {
-    const int o = backward ? t + off : t - off;
-    const bool has = backward ? o < GT_FB : o >= 0;
-    Fp v = s[t], w;
-    if (has) w = s[o];
-    __syncthreads();
-    if (has) s[t] = mul_lazy(w, v, F);
-    __syncthreads();
+  for (int off = 1; off < width; off <<= 1) {
+    const Fp w = backward ? shfl_down(v, off) : shfl_up(v, off);
+    if (backward ? lane + off < width : lane >= off) v = mul_lazy(v, w, F);
+  }
+  return v;
+}
+
+// The product of the lanes of each aligned group of `width` lanes, in
+// every lane of the group.
+__device__ __forceinline__ Fp warp_prod(Fp v, int width, const FieldC& F) {
+#pragma unroll 1
+  for (int off = 1; off < width; off <<= 1)
+    v = mul_lazy(v, shfl_xor(v, off), F);
+  return v;
+}
+
+// ---------------------------------------------------------------------
+// K11
+// ---------------------------------------------------------------------
+
+// Rows of the thread whose first row is `first`, E rows GT_FB apart,
+// below n.
+__device__ __forceinline__ int rows_of(long long first, long long n, int E) {
+  if (first >= n) return 0;
+  const long long k = (n - 1 - first) / GT_FB + 1;
+  return k < E ? (int)k : E;
+}
+
+// Pass 1: tile b = rows [b C, (b + 1) C), C = E GT_FB, thread t its rows
+// b C + k GT_FB + t: pre[row] = the thread's product of its nonzero rows
+// so far (lazy); tot[b] = the tile's product (never 0 mod p).
+__global__ void __launch_bounds__(GT_FB)
+    inv_up_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ pre,
+                  uint32_t* __restrict__ tot, long long n, int E, FieldC F) {
+  __shared__ Fp wt[GT_WARPS];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long first = (long long)blockIdx.x * E * GT_FB + threadIdx.x;
+  const int kn = rows_of(first, n, E);
+  Fp acc, x;
+  set_one(acc, F);
+  for (int k = 0; k < kn; ++k) {
+    const long long i = first + (long long)k * GT_FB;
+    ld(x, a + i * GT_NW);
+    if (!is_zero_lazy(x, F)) acc = mul_lazy(acc, x, F);
+    st(pre + i * GT_NW, acc);
+  }
+  acc = warp_prod(acc, 32, F);
+  if (lane == 0) wt[w] = acc;
+  __syncthreads();
+  if (w == 0) {
+    acc = warp_prod(wt[lane & (GT_WARPS - 1)], GT_WARPS, F);
+    if (lane == 0) st(tot + (long long)blockIdx.x * GT_NW, acc);
   }
 }
 
-// Block b takes rows [b E GT_FB, (b + 1) E GT_FB), thread t the rows
-// b E GT_FB + k GT_FB + t, k < E (neighbouring threads, neighbouring
-// rows). Forward: out[row] = the thread's product of its nonzero rows so
-// far. The thread totals' inverses come from one Fermat inverse of the
-// block's product and the in-block prefix and suffix products; backward,
-// 1 / a = inv * (the thread's prefix before the row), inv *= a.
+// One copy of the product's code for the one-block pass: its code runs
+// once a call, cold, so the fetches of many inlined copies would cost
+// more than the calls.
+__device__ __noinline__ Fp mul_once(Fp a, Fp b, const FieldC& F) {
+  return mul_lazy(a, b, F);
+}
+
+// Pass 2, one block: tot[b] <- 1 / tot[b] for the m tiles (never 0 mod
+// p) around one by_inv; latency-bound, so the block's product is a tree
+// of xor shuffles whose partners each level keeps: going down, 1 / (a
+// node) = 1 / (its parent) * (its partner), five levels in a warp and
+// GT_WARPS_LOG over the warps. pre: m rows of scratch (the prefixes).
 __global__ void __launch_bounds__(GT_FB)
-    batch_inv_kernel(const uint32_t* __restrict__ a,
-                     uint32_t* __restrict__ out, long long n, int E,
-                     FieldC F) {
-  __shared__ Fp pre[GT_FB], suf[GT_FB];
-  __shared__ Fp inv_all;
-  const int t = threadIdx.x;
-  const long long base = (long long)blockIdx.x * E * GT_FB + t;
+    inv_mid_kernel(uint32_t* __restrict__ tot, uint32_t* __restrict__ pre,
+                   long long m, FieldC F) {
+  __shared__ Fp wt[GT_WARPS];
+  __shared__ Fp inv_s;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int E = (int)((m + GT_FB - 1) / GT_FB);
+  const int kn = rows_of(t, m, E);
   Fp acc, x;
   set_one(acc, F);
-  int kn = 0;                       // rows of this thread
-  for (int k = 0; k < E; ++k) {
-    const long long i = base + (long long)k * GT_FB;
-    if (i >= n) break;
-    ld(x, a + i * GT_NW);
-    if (!is_zero_lazy(x, F)) acc = mul_lazy(acc, x, F);
-    st(out + i * GT_NW, acc);
-    kn = k + 1;
+#pragma unroll 1
+  for (int k = 0; k < kn; ++k) {
+    const long long i = t + (long long)k * GT_FB;
+    ld(x, tot + i * GT_NW);
+    acc = mul_once(acc, x, F);
+    st(pre + i * GT_NW, acc);
   }
-  pre[t] = acc;
-  suf[t] = acc;
+  Fp s[5], u[GT_WARPS_LOG];
+#pragma unroll
+  for (int l = 0; l < 5; ++l) {
+    s[l] = shfl_xor(acc, 1 << l);
+    acc = mul_once(acc, s[l], F);
+  }
+  if (lane == 0) wt[w] = acc;
   __syncthreads();
-  block_scan(pre, false, F);
-  block_scan(suf, true, F);
-  if (t == 0) inv_all = fermat_inv(pre[GT_FB - 1], F);
+  acc = wt[lane & (GT_WARPS - 1)];
+#pragma unroll
+  for (int l = 0; l < GT_WARPS_LOG; ++l) {
+    u[l] = shfl_xor(acc, 1 << l);
+    acc = mul_once(acc, u[l], F);
+  }
+  if (t == 0) inv_s = by_inv(acc, F);
   __syncthreads();
-  Fp inv = inv_all;
-  if (t > 0) inv = mul_lazy(inv, pre[t - 1], F);
-  if (t < GT_FB - 1) inv = mul_lazy(inv, suf[t + 1], F);
+  Fp inv = inv_s;
+#pragma unroll
+  for (int l = GT_WARPS_LOG - 1; l >= 0; --l) inv = mul_once(inv, u[l], F);
+  inv = shfl_idx(inv, w);                    // 1 / (this warp's product)
+#pragma unroll
+  for (int l = 4; l >= 0; --l) inv = mul_once(inv, s[l], F);
+#pragma unroll 1
   for (int k = kn - 1; k >= 0; --k) {
-    const long long i = base + (long long)k * GT_FB;
+    const long long i = t + (long long)k * GT_FB;
+    Fp prev;
+    if (k > 0)
+      ld(prev, pre + (i - GT_FB) * GT_NW);
+    else
+      set_one(prev, F);
+    ld(x, tot + i * GT_NW);
+    st(tot + i * GT_NW, mul_once(inv, prev, F));
+    inv = mul_once(inv, x, F);
+  }
+}
+
+// Pass 3: tile b from its inverse tinv[b]; out holds pass 1's prefixes
+// and takes 1 / a[row] (0 for a zero row), canonical. The thread's
+// product is its last prefix; its inverse is 1 / (the tile's product)
+// times every other thread's product (in the warp: exclusive prefix and
+// suffix scans; across the warps the same in warp 0). Then, backward
+// over the thread's rows, 1 / a = inv * (the prefix before the row), inv
+// *= a; each row's prefix is read before the row is written.
+__global__ void __launch_bounds__(GT_FB)
+    inv_down_kernel(const uint32_t* __restrict__ a, uint32_t* out,
+                    const uint32_t* __restrict__ tinv, long long n, int E,
+                    FieldC F) {
+  __shared__ Fp wt[GT_WARPS];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long first = (long long)blockIdx.x * E * GT_FB + threadIdx.x;
+  const int kn = rows_of(first, n, E);
+  Fp tot, x;
+  if (kn > 0)
+    ld(tot, out + (first + (long long)(kn - 1) * GT_FB) * GT_NW);
+  else
+    set_one(tot, F);
+  const Fp fw = warp_scan(tot, false, 32, F);
+  const Fp bw = warp_scan(tot, true, 32, F);
+  const Fp before = shfl_up(fw, 1), after = shfl_down(bw, 1);
+  if (lane == 31) wt[w] = fw;
+  __syncthreads();
+  if (w == 0) {
+    if (lane < GT_WARPS)
+      x = wt[lane];
+    else
+      set_one(x, F);
+    const Fp xf = warp_scan(x, false, GT_WARPS, F);
+    const Fp xb = warp_scan(x, true, GT_WARPS, F);
+    const Fp xp = shfl_up(xf, 1), xs = shfl_down(xb, 1);
+    Fp inv;
+    ld(inv, tinv + (long long)blockIdx.x * GT_NW);
+    if (lane > 0) inv = mul_lazy(inv, xp, F);
+    if (lane < GT_WARPS - 1) inv = mul_lazy(inv, xs, F);
+    if (lane < GT_WARPS) wt[lane] = inv;      // 1 / (warp lane's product)
+  }
+  __syncthreads();
+  Fp inv = wt[w];
+  if (lane > 0) inv = mul_lazy(inv, before, F);
+  if (lane < 31) inv = mul_lazy(inv, after, F);
+  for (int k = kn - 1; k >= 0; --k) {
+    const long long i = first + (long long)k * GT_FB;
     ld(x, a + i * GT_NW);
     Fp r;
     if (is_zero_lazy(x, F)) {
@@ -117,54 +294,153 @@ __global__ void __launch_bounds__(GT_FB)
   }
 }
 
-// Block b takes rows [b C, (b + 1) C), C = GT_SCAN_E GT_FB, thread t the
-// GT_SCAN_E rows from b C + t GT_SCAN_E: its running product, then the
-// product of the block's earlier threads (an in-block scan) in front.
-// tot[b] = the block's product (lazy); out canonical.
-__global__ void __launch_bounds__(GT_FB)
-    scan_block_kernel(const uint32_t* __restrict__ a,
-                      uint32_t* __restrict__ out, uint32_t* __restrict__ tot,
-                      long long n, FieldC F) {
-  __shared__ Fp s[GT_FB];
-  const int t = threadIdx.x;
-  const long long base =
-      (long long)blockIdx.x * GT_SCAN_E * GT_FB + (long long)t * GT_SCAN_E;
-  Fp acc, x;
-  set_one(acc, F);
-  int kn = 0;
-  for (int k = 0; k < GT_SCAN_E; ++k) {
-    const long long i = base + k;
-    if (i >= n) break;
-    ld(x, a + i * GT_NW);
-    acc = k ? mul_lazy(acc, x, F) : x;
-    st(out + i * GT_NW, acc);
-    kn = k + 1;
-  }
-  s[t] = acc;
-  __syncthreads();
-  block_scan(s, false, F);
-  Fp before;
-  if (t > 0) before = s[t - 1];
-  for (int k = 0; k < kn; ++k) {
-    const long long i = base + k;
-    ld(x, out + i * GT_NW);
-    if (t > 0) x = mul_lazy(before, x, F);
-    st(out + i * GT_NW, canon(x, F));
-  }
-  if (t == GT_FB - 1) st(tot + (long long)blockIdx.x * GT_NW, s[t]);
+// ---------------------------------------------------------------------
+// K12
+// ---------------------------------------------------------------------
+
+#define GT_AGG 1   // a tile's flag: its product is published
+#define GT_INC 2   // ... its inclusive prefix is published
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// rows of block b >= 1 times the scanned product of blocks 0 .. b - 1
-__global__ void scan_fix_kernel(uint32_t* __restrict__ out,
-                                const uint32_t* __restrict__ pre,
-                                long long n, FieldC F) {
-  const long long C = (long long)GT_SCAN_E * GT_FB;
-  const long long i = C + blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fp x, y;
-  ld(x, out + i * GT_NW);
-  ld(y, pre + (i / C - 1) * GT_NW);
-  st(out + i * GT_NW, canon(mul_lazy(x, y, F), F));
+// after a flag read relaxed: the reads that follow see what was written
+// before the flag's release (a plain spin, then one fence)
+__device__ __forceinline__ void fence_acquire() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// from L2: another tile's value, written once, after this SM may have
+// cached its neighbours' line
+__device__ __forceinline__ void ld_cg(Fp& r, const uint32_t* g) {
+  const uint4* q = reinterpret_cast<const uint4*>(g);
+  const uint4 u = __ldcg(q), v = __ldcg(q + 1);
+  r.w[0] = u.x; r.w[1] = u.y; r.w[2] = u.z; r.w[3] = u.w;
+  r.w[4] = v.x; r.w[5] = v.y; r.w[6] = v.z; r.w[7] = v.w;
+}
+
+__device__ __forceinline__ void publish(uint32_t* val, int* flag,
+                                        long long tile, const Fp& v,
+                                        int state) {
+  st(val + tile * GT_NW, v);
+  st_release(flag + tile, state);
+}
+
+// Warp 0 of the tile: publishes the tile's product A (agg, flag
+// GT_AGG), returns the product of every earlier tile (one for tile 0)
+// and publishes that times A (inc, flag GT_INC). Lane l waits on the
+// tile l + 1 before this one. If one of those 32 has its prefix
+// published, the product runs up to the nearest such tile (its inc)
+// over the products of the tiles after it. Otherwise the 32 products'
+// product W is taken and lane 0 waits for the prefix of the tile just
+// before them, which that tile publishes by the same rule: a chain of
+// one product a link, 33 tiles a link (products commute, so the order
+// within a window does not matter). A tile's ticket is taken when its
+// block starts, so every earlier tile's block is running or done: no
+// deadlock; tile 0 publishes its prefix at once.
+__device__ __forceinline__ Fp lookback(long long tile, const Fp& A,
+                                       int* flag, uint32_t* agg,
+                                       uint32_t* inc, const FieldC& F) {
+  const int lane = threadIdx.x & 31;
+  Fp run;
+  set_one(run, F);
+  if (tile == 0) {
+    if (lane == 0) publish(inc, flag, 0, A, GT_INC);
+    return run;
+  }
+  if (lane == 0) publish(agg, flag, tile, A, GT_AGG);
+  const long long i = tile - 1 - lane;
+  int f = GT_INC;
+  if (i >= 0)
+    while ((f = ld_relaxed(flag + i)) == 0) {
+    }
+  fence_acquire();
+  const unsigned pm = __ballot_sync(GT_FULL, f == GT_INC);
+  if (i >= 0 && (pm == 0 || lane <= __ffs(pm) - 1))
+    ld_cg(run, (f == GT_INC ? inc : agg) + i * GT_NW);
+  run = warp_prod(run, 32, F);
+  if (pm) {
+    if (lane == 0) publish(inc, flag, tile, mul_lazy(run, A, F), GT_INC);
+    return run;
+  }
+  const Fp wa = mul_lazy(run, A, F);
+  Fp p;
+  set_one(p, F);
+  if (lane == 0) {
+    const long long j = tile - 33;
+    while (ld_relaxed(flag + j) != GT_INC) {
+    }
+    fence_acquire();
+    ld_cg(p, inc + j * GT_NW);
+    publish(inc, flag, tile, mul_lazy(p, wa, F), GT_INC);
+  }
+  return mul_lazy(run, shfl_idx(p, 0), F);
+}
+
+// One launch: the block takes tile `ticket` (rows [tile C, (tile + 1) C),
+// C = GT_SCAN_C), thread t the GT_SCAN_E consecutive rows from t
+// GT_SCAN_E. Up: the thread's product of its rows; a shuffle scan of the
+// warp's, a scan of the warps' in warp 0, the look-back for the earlier
+// tiles'. Down: the rows read again (from L2: the tile was just read),
+// the thread's running product from (the earlier tiles', warps' and
+// lanes' product) written row by row. About two products a row, no
+// shared memory for the rows, so more blocks a multiprocessor. state:
+// [0] the ticket, [1 + b] tile b's flag, zeroed by the caller; agg, inc:
+// a value a tile. out canonical.
+__global__ void __launch_bounds__(GT_SCAN_T)
+    scan_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+                int* state, uint32_t* agg, uint32_t* inc, long long n,
+                FieldC F) {
+  __shared__ Fp wt[GT_SCAN_T / 32];
+  __shared__ long long tile_s;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  if (t == 0) tile_s = atomicAdd(state, 1);
+  __syncthreads();
+  const long long tile = tile_s;
+  const long long first = tile * GT_SCAN_C + (long long)t * GT_SCAN_E;
+  const int kn = first >= n ? 0
+                 : n - first < GT_SCAN_E ? (int)(n - first) : GT_SCAN_E;
+  Fp x, acc;
+  set_one(acc, F);
+#pragma unroll 1
+  for (int k = 0; k < kn; ++k) {
+    ld(x, a + (first + k) * GT_NW);
+    acc = k ? mul_lazy(acc, x, F) : x;
+  }
+  const Fp li = warp_scan(acc, false, 32, F);
+  const Fp before = shfl_up(li, 1);
+  if (lane == 31) wt[w] = li;
+  __syncthreads();
+  if (w == 0) {
+    if (lane < GT_SCAN_T / 32)
+      x = wt[lane];
+    else
+      set_one(x, F);
+    const Fp wi = warp_scan(x, false, GT_SCAN_T / 32, F);
+    Fp X = lookback(tile, shfl_idx(wi, GT_SCAN_T / 32 - 1), state + 1, agg,
+                    inc, F);
+    const Fp wb = shfl_up(wi, 1);
+    if (lane > 0) X = mul_lazy(X, wb, F);
+    if (lane < GT_SCAN_T / 32) wt[lane] = X;  // all before warp lane
+  }
+  __syncthreads();
+  Fp pre = wt[w];
+  if (lane > 0) pre = mul_lazy(pre, before, F);
+#pragma unroll 1
+  for (int k = 0; k < kn; ++k) {
+    ld(x, a + (first + k) * GT_NW);
+    pre = mul_lazy(pre, x, F);
+    st(out + (first + k) * GT_NW, canon(pre, F));
+  }
 }
 
 // Each thread sums a[i] b[i] (or a[i]) over i = its index + k * (all
@@ -212,49 +488,66 @@ extern "C" int gt_ff_addsub(const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
-// One wave of blocks (as many as the card holds at once), at least one
-// row a thread.
-extern "C" int gt_batch_inv(const void* a, void* out, long long n,
-                            const void* consts, void* stream) {
+// Rows a thread in K11's passes 1 and 3: the least power of two from
+// GT_INV_E that fits all tiles in one wave of pass 3's blocks (fewer,
+// longer threads spend fewer products on their in-block inverses).
+static int inv_rows(long long n) {
+  static long long waves[64];          // threads of one wave, by device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (!waves[dev]) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inv_down_kernel,
+                                                  GT_FB, 0);
+    waves[dev] = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1) *
+                 GT_FB;
+  }
+  const long long wave = waves[dev];
+  int E = GT_INV_E;
+  while ((long long)E * wave < n && E < (1 << 20)) E <<= 1;
+  return E;
+}
+
+// scratch: 2m rows, m the tiles at GT_INV_E rows a thread at most
+// (ff/ops.py inv_tiles): the tiles' products, then their inverses; pass
+// 2's prefixes. Three launches.
+extern "C" int gt_batch_inv(const void* a, void* out, void* scratch,
+                            long long n, const void* consts, void* stream) {
   if (n <= 0) return 0;
   FieldC F = field_from_host((const uint32_t*)consts);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batch_inv_kernel,
-                                                GT_FB, 0);
-  long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  long long E = (n + wave * GT_FB - 1) / (wave * GT_FB);
-  if (E < 1) E = 1;
-  batch_inv_kernel<<<blocks_of(n, (int)(E * GT_FB)), GT_FB, 0,
-                     (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (uint32_t*)out, n, (int)E, F);
-  return (int)cudaGetLastError();
-}
-
-// scratch, at each level: the blocks' products, then (past one block)
-// their scan and the next level's scratch (ff/ops.py scan_scratch_rows)
-static int scan_rec(const uint32_t* a, uint32_t* out, uint32_t* scratch,
-                    long long n, FieldC F, cudaStream_t s) {
-  const long long C = (long long)GT_SCAN_E * GT_FB;
-  const long long m = (n + C - 1) / C;
-  uint32_t* tot = scratch;
-  uint32_t* pre = scratch + m * GT_NW;
-  scan_block_kernel<<<(unsigned)m, GT_FB, 0, s>>>(a, out, tot, n, F);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int E = inv_rows(n);
+  const long long m = (n + (long long)E * GT_FB - 1) / ((long long)E * GT_FB);
+  if (m > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  uint32_t* tot = (uint32_t*)scratch;
+  inv_up_kernel<<<(unsigned)m, GT_FB, 0, s>>>((const uint32_t*)a,
+                                              (uint32_t*)out, tot, n, E, F);
   int rc = (int)cudaGetLastError();
-  if (rc || m == 1) return rc;
-  rc = scan_rec(tot, pre, pre + m * GT_NW, m, F, s);
   if (rc) return rc;
-  scan_fix_kernel<<<blocks_of(n - C, 256), 256, 0, s>>>(out, pre, n, F);
+  inv_mid_kernel<<<1, GT_FB, 0, s>>>(tot, tot + m * GT_NW, m, F);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  inv_down_kernel<<<(unsigned)m, GT_FB, 0, s>>>(
+      (const uint32_t*)a, (uint32_t*)out, tot, n, E, F);
   return (int)cudaGetLastError();
 }
 
+// scratch, zero: the ticket and the m tiles' flags (1 + m ints, padded
+// to a multiple of GT_NW), then 2m rows (the tiles' products, their
+// inclusive prefixes); m = the tiles (ff/ops.py scan_tiles). One launch.
 extern "C" int gt_scan_mul(const void* a, void* out, void* scratch,
                            long long n, const void* consts, void* stream) {
   if (n <= 0) return 0;
   FieldC F = field_from_host((const uint32_t*)consts);
-  return scan_rec((const uint32_t*)a, (uint32_t*)out, (uint32_t*)scratch, n,
-                  F, (cudaStream_t)stream);
+  const long long m = (n + GT_SCAN_C - 1) / GT_SCAN_C;
+  if (m > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  int* state = (int*)scratch;
+  uint32_t* v = (uint32_t*)scratch + (1 + m + GT_NW - 1) / GT_NW * GT_NW;
+  scan_kernel<<<(unsigned)m, GT_SCAN_T, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, state, v, v + m * GT_NW, n, F);
+  return (int)cudaGetLastError();
 }
 
 // scratch: GT_DOT_MAXB rows for the first pass's block sums

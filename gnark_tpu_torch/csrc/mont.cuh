@@ -17,9 +17,12 @@
 //   add2p, sub2p, neg2p, double2p   on [0, 2p)
 //   canon         < 3p -> [0, p) with two conditional p subtracts
 //   fermat_inv    z^(p-2), in < 2p, out < 2p
+//   by_inv        1 / z by Bernstein-Yang divsteps, in < 2p (not 0 mod
+//                 p), out < 2p: one thread's short-latency inverse
 //   is_zero_lazy  a < 2p is 0 mod p
 // Field constants come in a FieldC passed by value as a kernel argument;
-// n0 is -p^-1 mod 2^32 (not the reference's 16-bit constant).
+// n0 is -p^-1 mod 2^32 (not the reference's 16-bit constant); r3 is
+// R^3 mod p (by_inv's return to Montgomery form).
 #pragma once
 
 #include <cstdint>
@@ -32,15 +35,18 @@ struct FieldC {
   uint32_t p2[GT_NW];
   uint32_t one[GT_NW];
   uint32_t n0;
+  uint32_t r3[GT_NW];
 };
 
-// Host: constants laid out as p | 2p | R mod p | n0 (25 words).
+// Host: constants laid out as p | 2p | R mod p | n0 | R^3 mod p (33
+// words; cuda.field_consts).
 static inline FieldC field_from_host(const uint32_t* c) {
   FieldC f;
   for (int i = 0; i < GT_NW; ++i) {
     f.p[i] = c[i];
     f.p2[i] = c[GT_NW + i];
     f.one[i] = c[2 * GT_NW + i];
+    f.r3[i] = c[3 * GT_NW + 1 + i];
   }
   f.n0 = c[3 * GT_NW];
   return f;
@@ -369,6 +375,186 @@ __device__ __forceinline__ void set_zero(Fp& r) {
 __device__ __forceinline__ void set_one(Fp& r, const FieldC& F) {
 #pragma unroll
   for (int i = 0; i < GT_NW; ++i) r.w[i] = F.one[i];
+}
+
+// ---------------------------------------------------------------------
+// 1 / z by Bernstein and Yang's safegcd ("Fast constant-time gcd
+// computation and modular inversion", 2019) in the form of
+// libsecp256k1's modinv32: signed 30-bit limbs (9 for 254 bits), 30
+// divsteps a batch on 32-bit words, each batch's 2x2 matrix then applied
+// to (f, g) exactly and to (d, e) mod p with 30 bits divided out
+// (d z = f, e z = g mod p throughout). 20 batches (600 divsteps) suffice
+// for moduli below 2^256 (the bound is 590, from delta = 1/2); the loop
+// ends early once g = 0, after which the batches leave d unchanged mod p
+// (random BN254 inputs take 17-18 batches: at most 18 in 200,000 a
+// field). Short dependent integer steps, against fermat_inv's 362
+// dependent products.
+// ---------------------------------------------------------------------
+
+#define GT_S30 9
+#define GT_M30 0x3FFFFFFF
+
+struct S30 {
+  int32_t v[GT_S30];
+};
+
+// 8 words (< 2^256) -> 9 limbs of 30 bits
+__device__ __forceinline__ S30 s30_of(const uint32_t* w) {
+  S30 r;
+#pragma unroll
+  for (int i = 0; i < GT_S30; ++i) {
+    const int bit = 30 * i, k = bit >> 5, s = bit & 31;
+    uint64_t x = w[k];
+    if (k + 1 < GT_NW) x |= (uint64_t)w[k + 1] << 32;
+    r.v[i] = (int32_t)((x >> s) & GT_M30);
+  }
+  return r;
+}
+
+// 9 limbs in [0, 2^30) -> 8 words
+__device__ __forceinline__ Fp words_of(const S30& a) {
+  Fp r;
+#pragma unroll
+  for (int k = 0; k < GT_NW; ++k) {
+    const int bit = 32 * k, i = bit / 30, s = bit % 30;
+    uint64_t x = (uint64_t)(uint32_t)a.v[i] >> s;
+    if (i + 1 < GT_S30) x |= (uint64_t)(uint32_t)a.v[i + 1] << (30 - s);
+    r.w[k] = (uint32_t)x;
+  }
+  return r;
+}
+
+// 30 divsteps on the low words of f (odd) and g from zeta = -(delta +
+// 1/2); (u v; q r) such that 2^30 (f', g') = (u f + v g, q f + r g).
+__device__ __forceinline__ int32_t divsteps_30(int32_t zeta, uint32_t f,
+                                               uint32_t g, int32_t* t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll 6
+  for (int i = 0; i < 30; ++i) {
+    uint32_t m1 = (uint32_t)(zeta >> 31);          // zeta < 0
+    const uint32_t m2 = 0u - (g & 1);              // g odd
+    const uint32_t x = (f ^ m1) - m1, y = (u ^ m1) - m1, z = (v ^ m1) - m1;
+    g += x & m2;
+    q += y & m2;
+    r += z & m2;
+    m1 &= m2;
+    zeta = (int32_t)((uint32_t)zeta ^ m1) - 1;
+    f += g & m1;
+    u += q & m1;
+    v += r & m1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t[0] = (int32_t)u;
+  t[1] = (int32_t)v;
+  t[2] = (int32_t)q;
+  t[3] = (int32_t)r;
+  return zeta;
+}
+
+// (f, g) <- (u f + v g, q f + r g) / 2^30, exact
+__device__ __forceinline__ void update_fg_30(S30& f, S30& g,
+                                             const int32_t* t) {
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  int64_t cf = (int64_t)u * f.v[0] + (int64_t)v * g.v[0];
+  int64_t cg = (int64_t)q * f.v[0] + (int64_t)r * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < GT_S30; ++i) {
+    cf += (int64_t)u * f.v[i] + (int64_t)v * g.v[i];
+    cg += (int64_t)q * f.v[i] + (int64_t)r * g.v[i];
+    f.v[i - 1] = (int32_t)cf & GT_M30;
+    g.v[i - 1] = (int32_t)cg & GT_M30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f.v[GT_S30 - 1] = (int32_t)cf;
+  g.v[GT_S30 - 1] = (int32_t)cg;
+}
+
+// (d, e) <- (u d + v e, q d + r e) / 2^30 mod p: the multiples md, me of
+// p that clear the low 30 bits are added first (pinv = p^-1 mod 2^32);
+// d, e stay in (-2p, p).
+__device__ __forceinline__ void update_de_30(S30& d, S30& e, const int32_t* t,
+                                             const S30& P, uint32_t pinv) {
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  const int32_t sd = d.v[GT_S30 - 1] >> 31, se = e.v[GT_S30 - 1] >> 31;
+  int32_t md = (u & sd) + (v & se);
+  int32_t me = (q & sd) + (r & se);
+  int64_t cd = (int64_t)u * d.v[0] + (int64_t)v * e.v[0];
+  int64_t ce = (int64_t)q * d.v[0] + (int64_t)r * e.v[0];
+  md -= (int32_t)((pinv * (uint32_t)cd + (uint32_t)md) & GT_M30);
+  me -= (int32_t)((pinv * (uint32_t)ce + (uint32_t)me) & GT_M30);
+  cd += (int64_t)P.v[0] * md;
+  ce += (int64_t)P.v[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < GT_S30; ++i) {
+    cd += (int64_t)u * d.v[i] + (int64_t)v * e.v[i] + (int64_t)P.v[i] * md;
+    ce += (int64_t)q * d.v[i] + (int64_t)r * e.v[i] + (int64_t)P.v[i] * me;
+    d.v[i - 1] = (int32_t)cd & GT_M30;
+    e.v[i - 1] = (int32_t)ce & GT_M30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d.v[GT_S30 - 1] = (int32_t)cd;
+  e.v[GT_S30 - 1] = (int32_t)ce;
+}
+
+// d in (-2p, p) -> (sign < 0 ? -d : d) mod p in [0, p), limbs in [0, 2^30)
+__device__ __forceinline__ void normalize_30(S30& d, int32_t sign,
+                                             const S30& P) {
+  int32_t add = d.v[GT_S30 - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < GT_S30; ++i) d.v[i] += P.v[i] & add;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < GT_S30; ++i) d.v[i] = (d.v[i] ^ neg) - neg;
+#pragma unroll
+  for (int i = 0; i < GT_S30 - 1; ++i) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= GT_M30;
+  }
+  add = d.v[GT_S30 - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < GT_S30; ++i) d.v[i] += P.v[i] & add;
+#pragma unroll
+  for (int i = 0; i < GT_S30 - 1; ++i) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= GT_M30;
+  }
+}
+
+// z R (Montgomery, < 2p, not 0 mod p) -> z^-1 R (< 2p): the integer
+// inverse of canon(z R) is z^-1 R^-1; one product by R^3 gives z^-1 R.
+__device__ __forceinline__ Fp by_inv(const Fp& z, const FieldC& F) {
+  const Fp x = canon(z, F);
+  const S30 P = s30_of(F.p);
+  const uint32_t pinv = 0u - F.n0;
+  S30 d, e, f = P, g = s30_of(x.w);
+#pragma unroll
+  for (int i = 0; i < GT_S30; ++i) d.v[i] = e.v[i] = 0;
+  e.v[0] = 1;
+  int32_t zeta = -1;
+#pragma unroll 1
+  for (int it = 0; it < 20; ++it) {
+    int32_t t[4];
+    zeta = divsteps_30(zeta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+    update_de_30(d, e, t, P, pinv);
+    update_fg_30(f, g, t);
+    int32_t nz = 0;
+#pragma unroll
+    for (int i = 0; i < GT_S30; ++i) nz |= g.v[i];
+    if (nz == 0) break;
+  }
+  normalize_30(d, f.v[GT_S30 - 1], P);
+  Fp r3;
+#pragma unroll
+  for (int i = 0; i < GT_NW; ++i) r3.w[i] = F.r3[i];
+  return mul_lazy(words_of(d), r3, F);
 }
 
 // ---------------------------------------------------------------------

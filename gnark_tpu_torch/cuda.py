@@ -136,7 +136,8 @@ def stream(t: torch.Tensor) -> int:
 def field_consts(name: str) -> np.ndarray:
     """Kernel constants of a field: p, 2p and R mod p in 8 words each,
     then -p^-1 mod 2^32 (the 32-bit REDC constant; FieldParams.n0inv is
-    the 16-bit one)."""
+    the 16-bit one), then R^3 mod p in 8 words (csrc/mont.cuh by_inv's
+    return to Montgomery form): 33 words, FieldC's layout."""
     if name not in KERNEL_FIELDS:
         raise ValueError(f"no CUDA kernel for field {name}")
     from gnark_tpu_torch.fields import FIELDS
@@ -147,8 +148,8 @@ def field_consts(name: str) -> np.ndarray:
         return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
 
     n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
-    return np.array(words(p) + words(2 * p) + words(par.R_mod) + [n0],
-                    dtype=np.uint32)
+    return np.array(words(p) + words(2 * p) + words(par.R_mod) + [n0]
+                    + words(par.R3_mod), dtype=np.uint32)
 
 
 def dev_words(t: torch.Tensor, what: str, shape=None) -> torch.Tensor:

@@ -13,8 +13,8 @@ jax.lax.associative_scan(ff.mul) and ff_sum in
 gnark_tpu/backend/plonk_device.py:58-77). Kernels: csrc/ff_ops.cu. On a
 CPU tensor each runs its plain version (`*_plain`, over the int64 limbs
 of ff.mont.FF); on a CUDA tensor its kernel, or an error. Each wrapper
-counts its calls in `.launches` (scan_mul and dot run a few kernels a
-call: see the source).
+counts its calls in `.launches` (each docstring says the kernels a call
+starts).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import torch
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ff.mont import FF
 
-SCAN_CHUNK = 8 * 256      # rows a block of K12 (GT_SCAN_E * GT_FB)
+INV_TILE = 8 * 256        # K11's least rows a tile (GT_INV_E * GT_FB)
+SCAN_TILE = 16 * 512      # rows a tile of K12 (GT_SCAN_C)
 DOT_MAXB = 1024           # K13's first-pass blocks at most (GT_DOT_MAXB)
 
 
@@ -91,14 +92,15 @@ def _check(ff: FF, what: str, a, b=None, bcast=False):
 def _fn(name: str):
     sig = {"gt_ff_addsub": (3, [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_void_p]),
-           "gt_batch_inv": (2, [ctypes.c_longlong, ctypes.c_void_p]),
+           "gt_batch_inv": (3, [ctypes.c_longlong, ctypes.c_void_p]),
            "gt_scan_mul": (3, [ctypes.c_longlong, ctypes.c_void_p]),
            "gt_dot": (4, [ctypes.c_longlong, ctypes.c_void_p])}[name]
     return cuda.bind("ff_ops", name, *sig)
 
 
 def ff_addsub(ff: FF, a, b, sub: bool):
-    """K10: a - b if sub else a + b; b (n, nw) or one element (1, nw)."""
+    """K10: a - b if sub else a + b; b (n, nw) or one element (1, nw).
+    One kernel on the card."""
     what = ("add", "sub")[sub]
     _check(ff, what, a, b, bcast=True)
     if a.device.type == "cpu":
@@ -127,17 +129,22 @@ def sub(ff: FF, a, b):
     return ff_addsub(ff, a, b, True)
 
 
+def inv_tiles(n: int) -> int:
+    """K11's tiles for n rows at most (its kernel takes longer tiles as n
+    grows); its scratch is twice as many rows (the tiles' products and
+    inverses, then the one-block pass's prefixes)."""
+    return -(-n // INV_TILE)
+
+
 def batch_inv(ff: FF, a):
-    """1 / a for each row; zero rows give zero."""
+    """1 / a for each row; zero rows give zero. On the card: prefixes a
+    thread and each tile's product, one block that inverts the tiles'
+    products around a single field inversion, then each tile's
+    inverses; 3 kernels."""
     _check(ff, "batch_inv", a)
     if a.device.type == "cpu":
         return batch_inv_plain(ff, a)
-    a = cuda.dev_words(a, "batch_inv")
-    out = torch.empty_like(a)
-    rc = _fn("gt_batch_inv")(a.data_ptr(), out.data_ptr(), a.shape[0],
-                             cuda.field_consts(ff.p.name).ctypes.data,
-                             cuda.stream(a))
-    cuda.check(rc, "batch_inv")
+    out = _batch_inv_card(ff, cuda.dev_words(a, "batch_inv"))
     batch_inv.launches += 1
     return out
 
@@ -145,29 +152,39 @@ def batch_inv(ff: FF, a):
 batch_inv.launches = 0
 
 
-def scan_scratch_rows(n: int) -> int:
-    """Rows of K12's scratch for n rows: at each level the blocks'
-    products, then, past one block, their scan and the next level's."""
-    m = -(-n // SCAN_CHUNK)
-    return m + (m + scan_scratch_rows(m) if m > 1 else 0)
+def _batch_inv_card(ff: FF, a):
+    n = a.shape[0]
+    out = torch.empty_like(a)
+    scratch = torch.empty((2 * max(inv_tiles(n), 1), ff.nw),
+                          dtype=torch.int32, device=a.device)
+    rc = _fn("gt_batch_inv")(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                             n, cuda.field_consts(ff.p.name).ctypes.data,
+                             cuda.stream(a))
+    cuda.check(rc, "batch_inv")
+    return out
+
+
+def scan_tiles(n: int) -> int:
+    """Tiles of K12 for n rows."""
+    return -(-n // SCAN_TILE)
+
+
+def scan_scratch_words(n: int) -> int:
+    """int32 words of K12's zeroed scratch for n rows: the ticket and a
+    flag a tile (padded to whole rows), then two rows a tile (a tile's
+    product, its inclusive prefix)."""
+    m = max(scan_tiles(n), 1)
+    return -(-(1 + m) // 8) * 8 + 2 * m * 8
 
 
 def scan_mul(ff: FF, a):
     """Inclusive prefix products: out[i] = a[0] * ... * a[i]. On the
-    card: a block scan of 2048 rows a block, the same over the blocks'
-    products (recursively), then a fix-up pass; 3 kernels at 2^20."""
+    card: one kernel, a single-pass scan of 8192-row tiles with
+    decoupled look-back."""
     _check(ff, "scan_mul", a)
     if a.device.type == "cpu":
         return scan_mul_plain(ff, a)
-    n = a.shape[0]
-    a = cuda.dev_words(a, "scan_mul")
-    out = torch.empty_like(a)
-    scratch = torch.empty((max(scan_scratch_rows(n), 1), ff.nw),
-                          dtype=torch.int32, device=a.device)
-    rc = _fn("gt_scan_mul")(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                            n, cuda.field_consts(ff.p.name).ctypes.data,
-                            cuda.stream(a))
-    cuda.check(rc, "scan_mul")
+    out = _scan_mul_card(ff, cuda.dev_words(a, "scan_mul"))
     scan_mul.launches += 1
     return out
 
@@ -175,9 +192,22 @@ def scan_mul(ff: FF, a):
 scan_mul.launches = 0
 
 
+def _scan_mul_card(ff: FF, a):
+    n = a.shape[0]
+    out = torch.empty_like(a)
+    scratch = torch.zeros(scan_scratch_words(n), dtype=torch.int32,
+                          device=a.device)
+    rc = _fn("gt_scan_mul")(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                            n, cuda.field_consts(ff.p.name).ctypes.data,
+                            cuda.stream(a))
+    cuda.check(rc, "scan_mul")
+    return out
+
+
 def dot(ff: FF, a, b=None):
     """sum_i a[i] * b[i] (b None: sum_i a[i]) as (1, nw) words. On the
-    card: block sums (at most 1024 blocks), then one block over them."""
+    card: block sums (at most 1024 blocks), then one block over them;
+    two kernels (one below 257 rows)."""
     _check(ff, "dot", a, b)
     if a.shape[0] == 0:
         raise ValueError("dot: no rows")

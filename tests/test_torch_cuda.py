@@ -123,6 +123,76 @@ def test_ff_ops(dev, n):
     assert torch.equal(ff_ops.batch_inv(f, z), z)
 
 
+def _dev_rows(ff, n, seed, dev, zeros=()):
+    """n random canonical rows made on the card (the top word cut below
+    0x30000000, so < p), p added to every third one, the given rows zero
+    (0 and p in turn)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = torch.randint(0, 1 << 32, (n, ff.nw), dtype=torch.int64,
+                      device=dev, generator=g)
+    w[:, -1] &= 0x2FFFFFFF
+    lift = torch.arange(1, n, 3, device=dev)
+    carry = torch.zeros_like(lift)
+    for i in range(ff.nw):
+        s = w[lift, i] + ((ff.p.modulus >> (32 * i)) & 0xFFFFFFFF) + carry
+        w[lift, i], carry = s & 0xFFFFFFFF, s >> 32
+    z = torch.as_tensor(list(zeros), dtype=torch.int64, device=dev)
+    w[z] = 0
+    w[z[::2]] = torch.tensor([(ff.p.modulus >> (32 * i)) & 0xFFFFFFFF
+                              for i in range(ff.nw)], device=dev)
+    return w.to(torch.int32)
+
+
+def _scan_plain(ff, a, chunk=1 << 22):
+    """scan_mul_plain in pieces of `chunk` rows, each times the prefix
+    before it by the plain product (2^24 rows at once would need 32 GB a
+    temporary of the plain product)."""
+    out, carry = [], None
+    for s in range(0, a.shape[0], chunk):
+        y = ff_ops.scan_mul_plain(ff, a[s:s + chunk])
+        if carry is not None:
+            y = mont_mul_plain(ff, y, carry)
+        carry = y[-1:]
+        out.append(y)
+    return torch.cat(out)
+
+
+T_INV, T_SCAN = 2048, 8192     # ff_ops.INV_TILE (8 rows a thread), SCAN_TILE
+
+
+@pytest.mark.parametrize("n, zeros", [
+    (3 * T_INV + 5, range(T_INV, 2 * T_INV)),          # a tile of zeros
+    (2 * T_INV + 3, range(2 * T_INV + 3)),             # all zeros
+    (5000, [i for i in range(5000) if i != 3001]),     # one nonzero row
+    (T_INV - 1, ()), (T_INV, (5,)), (T_INV + 1, (T_INV,)),
+    (256 * T_INV, ()), (256 * T_INV + 1, (7,)),         # pass 2: 256 threads
+    (1 << 21, range(0, 1 << 21, 4099))])               # the openings' 2N
+def test_batch_inv_edges(dev, n, zeros):
+    """K11 (three launches, one inversion a call) against its plain
+    version: zero rows and tiles, either side of each pass's tile (below
+    one wave of threads K11 takes 8 rows a thread, 2048 a tile; 2^21
+    takes longer tiles)."""
+    f = get_ff("bn254_fr")
+    a = _dev_rows(f, n, n, dev, zeros)
+    assert torch.equal(ff_ops.batch_inv(f, a), ff_ops.batch_inv_plain(f, a))
+
+
+@pytest.mark.parametrize("n, zeros", [
+    (5 * T_SCAN + 7, (3 * T_SCAN + 100,)),   # every later prefix is 0
+    (1, ()), (T_SCAN - 1, ()), (T_SCAN, ()), (T_SCAN + 1, ()),
+    (1 << 20, ()), ((1 << 22) + 1, ()),
+    ((1 << 24) + 3, ())])                    # 2,049 tiles: many waves
+def test_scan_mul_edges(dev, n, zeros):
+    """K12 (one launch, decoupled look-back) against its plain version."""
+    f = get_ff("bn254_fr")
+    a = _dev_rows(f, n, n + 1, dev, zeros)
+    got = ff_ops.scan_mul(f, a)
+    assert torch.equal(got, _scan_plain(f, a))
+    if zeros:
+        assert not got[:zeros[0]].eq(0).all(dim=1).any()
+
+
 @pytest.mark.parametrize("name", ["bn254_fp", "bn254_fr"])
 def test_mont_mul_sub_mul(dev, name):
     f = get_ff(name)

@@ -110,6 +110,17 @@ def test_kernel_constants_use_32bit_redc():
         cuda.field_consts("bls12_381_fp")
 
 
+def test_kernel_constants_end_with_r_cubed():
+    """csrc/mont.cuh's FieldC: 33 words, the last 8 R^3 mod p (by_inv's
+    return from 1 / (z R) to Montgomery form), R = 2^256."""
+    for name in BN254:
+        c = cuda.field_consts(name)
+        p = get_ff(name).p.modulus
+        assert c.shape == (33,)
+        r3 = sum(int(c[25 + i]) << (32 * i) for i in range(8))
+        assert r3 == pow(2, 3 * 256, p)
+
+
 def test_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("checks the error path of a machine without CUDA")

@@ -7,6 +7,8 @@ The kernels themselves are held against these on the card
 (tests/test_torch_cuda.py::test_ff_ops, chip_smoke.py).
 Tolerance: exact equality (canonical Montgomery words)."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 
 from gnark_tpu.backend import plonk_device as ref_pdev
 from gnark_tpu.ff import get_ff as ref_get_ff
+from gnark_tpu_torch import cuda
 from gnark_tpu_torch.backend import plonk_device as pdev
 from gnark_tpu_torch.ff import get_ff, ops
 
@@ -122,7 +125,41 @@ def test_wrappers_check_their_arguments():
         ops.scan_mul(f, a.reshape(-1))
     with pytest.raises(ValueError):
         ops.dot(f, a[:0])
-    assert ops.scan_scratch_rows(1) == 1
-    assert ops.scan_scratch_rows(2048) == 1
-    assert ops.scan_scratch_rows(2049) == 2 + 2 + 1
-    assert ops.scan_scratch_rows(1 << 20) == 512 + 512 + 1
+    # K12's scratch: tiles of 8192 rows; K11's: tiles of 2048 at most
+    assert ops.scan_tiles(1) == 1
+    assert ops.scan_tiles(8192) == 1
+    assert ops.scan_tiles(8193) == 2
+    assert ops.scan_tiles(1 << 20) == 128
+    assert ops.inv_tiles(2049) == 2
+    assert ops.inv_tiles(1 << 21) == 1024
+
+
+def test_card_halves_hand_the_kernels_zeroed_state(monkeypatch):
+    """K12's look-back needs its ticket and a flag a tile zero, then two
+    value rows a tile; K11 two scratch rows a tile: the card halves'
+    arguments, read through the pointers by a stub binding (CPU tensors
+    stand in for the card's)."""
+    f = get_ff(NAME)
+    seen = {}
+
+    def stub(name):
+        def call(*args):
+            n = args[-3]
+            if name == "gt_scan_mul":
+                seen[name] = (n, ctypes.string_at(
+                    args[2], 4 * ops.scan_scratch_words(n)))
+            else:
+                seen[name] = (n,)
+            return 0
+        return call
+
+    monkeypatch.setattr(ops, "_fn", stub)
+    monkeypatch.setattr(cuda, "stream", lambda t: 0)
+    n = 3 * ops.SCAN_TILE + 1
+    a = torch.zeros((n, f.nw), dtype=torch.int32)
+    assert ops._scan_mul_card(f, a).shape == a.shape
+    assert ops.scan_scratch_words(n) == 8 + 2 * 4 * 8
+    assert seen["gt_scan_mul"] == (n, bytes(4 * (8 + 2 * 4 * 8)))
+    assert ops.scan_scratch_words(1) == 8 + 2 * 8
+    assert ops._batch_inv_card(f, a).shape == a.shape
+    assert seen["gt_batch_inv"] == (n,)
