@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: the nine CUDA kernel libraries (one nvcc each, in
+  2. build: the ten CUDA kernel libraries (one nvcc each, in
      parallel) and the native witness solver;
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, mont_mul_sub_mul ((a*b - c)*d, broadcast d) and
@@ -30,8 +30,14 @@ Phases (any failure exits non-zero):
      with zeros (K11 also on all zeros, a tile of zeros, one nonzero row,
      either side of its tiles and at 2^21; K12 with a zero inside,
      either side of its tile and up to 2^24 + 3 rows: the look-back
-     across 2,049 tiles), and the CUDA kernels one call of each starts
-     (the profiler's device trace: K11 3, K12 1);
+     across 2,049 tiles); K13 dot and dot_many (one launch for up to
+     eight columns) at n = 1, 256, 257 and 2^18 + 1 with 1, 5 and 9
+     columns of unequal lengths; K14 plonk_numerator (the PLONK
+     quotient's numerator in one launch) at n = 1, 255, 256, 257 and 2^16
+     + 3 in both forms (one Z_H, a period-4 table), against its plain
+     version and against the K1 / K10 / K11 sequence it replaced; and the
+     CUDA kernels one call of each starts (the profiler's device trace:
+     K11 3, K12 1, K13 1, K14 1);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
@@ -62,8 +68,10 @@ Phases (any failure exits non-zero):
      plonk_20 (2^20 - 1 squaring-chain gates of bench.py's PLONK
      circuit, N = 2^20, the quotient's rho path): an SRS of 2^20 + 8
      (one ladder and one affine_words launch), setup, three proves
-     with their launches counted (K10-K13, K1, K2 and the bucket MSM
-     must launch, K3 and K5 must not), each stage timed by the host
+     with their launches counted (K10-K14, K1, K2 and the bucket MSM
+     must launch, K3 and K5 must not; a steady prove: K14 4, K11 3, K13
+     three calls of one kernel, K1 at most 135, K10 at most 54), each
+     stage timed by the host
      clock and CUDA events, verify, a tampered claimed value and a
      tampered commitment refused;
   6. every kernel again at the shapes its path gives it, held against
@@ -79,8 +87,9 @@ Phases (any failure exits non-zero):
      kernel); K8 at the widest
      halving step the group fold had and jac_fold at that wire MSM's
      fold, beside the halving tree; one whole 2^13 K5 transform; a 2^25
-     domain's ifft(fft(x)) == x, plain and coset; K10-K13 at
-     plonk_20's shapes); its launches during
+     domain's ifft(fft(x)) == x, plain and coset; K10-K14 at
+     plonk_20's shapes, K14 beside the sequence it replaced and K13's
+     dot_many of five columns beside five dot calls); its launches during
      its path, its time, its bound and its plain version's time, as one
      JSON line; the whole bucket MSM at each window width of SWEEP_C on
      those columns and their first 2^16 and 2^13 points (one group
@@ -88,7 +97,7 @@ Phases (any failure exits non-zero):
      the device as the last line.
 
 Option: --quick stops after phase 3, with phase 6's four-step
-transform, K8 / jac_fold and K10-K13 timings.
+transform, K8 / jac_fold and K10-K14 timings.
 """
 
 from __future__ import annotations
@@ -121,6 +130,10 @@ MUL_OPS = {  # 32-bit multiplies per operation (mul.lo + mul.hi per word pair)
     "jac_dbl2": 2 * 792 + 5 * 528,
     "jac_add": 11 * 264 + 5 * 208,      # add-2007-bl: 11M + 5S
     "jac_add2": 11 * 792 + 5 * 528,
+    "sop2": 392,            # a sum of two products, one reduction
+    # K14 a row (csrc/plonk_num.cu): 21 products in 13 products, two sop2
+    # and one sop4 (648 = 4 * 128 + 128 + 8): 4,864
+    "numerator": 13 * 264 + 2 * 392 + 648,
 }
 HBM_BYTES_PER_S = 3.35e12
 DEV = "cuda"          # the card; a rehearsal may set "cpu"
@@ -509,6 +522,7 @@ def scan_msm():
 def all_wrappers():
     from gnark_tpu_torch.ec.jac_ec import (jac_add, jac_add_mixed, jac_double,
                                            jac_fold)
+    from gnark_tpu_torch.backend.plonk_num import plonk_numerator
     from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
     from gnark_tpu_torch.ff import ops
     from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
@@ -521,7 +535,7 @@ def all_wrappers():
             jac_add_mixed, jac_double, jac_add, bucket_reduce, bucket_digits,
             batch_scalar_mul, mont_mul_sub_mul, affine_words, butterfly,
             fourstep_ntt, jac_fold, ops.ff_addsub, ops.batch_inv,
-            ops.scan_mul, ops.dot)
+            ops.scan_mul, ops.dot, ops.dot_many, plonk_numerator)
 
 
 def scan_prove(what, fn):
@@ -2006,11 +2020,40 @@ FF_OPS_KERNELS = {"ff_addsub": ("addsub_kernel",),
                   "batch_inv": ("inv_up_kernel", "inv_mid_kernel",
                                 "inv_down_kernel"),
                   "scan_mul": ("scan_kernel",),
-                  "dot": ("dot_kernel", "dot_kernel")}
+                  "dot": ("dot_kernel",),
+                  "dot_many": ("dot_kernel",),
+                  "plonk_numerator": ("numerator_kernel",)}
+
+
+def num_case(ff, n, period, gen, rng):
+    """K14's inputs at n rows, made on the card: the 13 columns (a third
+    of each in [p, 2p), dev_rows), points x = c w (w such rows too, c a
+    random int), a Z_H table of `period` random entries and their
+    inverses, random challenges. Returns (cols, points, challenges)."""
+    from gnark_tpu_torch.backend.plonk_num import NUM_COLS, NumPoints
+    q = ff.p.modulus
+    cols = {k: dev_rows(ff, n, gen) for k in NUM_COLS}
+    zh = tuple(rng.randrange(1, q) for _ in range(period))
+    pts = NumPoints(dev_rows(ff, n, gen), rng.randrange(1, q), zh,
+                    tuple(pow(v, -1, q) for v in zh),
+                    ("smoke", n, period, rng.random()))
+    s = {k: rng.randrange(q) for k in ("beta", "gamma", "alpha", "u")}
+    s.update(alpha2=s["alpha"] ** 2 % q, u2=s["u"] ** 2 % q,
+             Ninv=rng.randrange(1, q))
+    return cols, pts, s
+
+
+def num_plain(ff, cols, pts, s, kernels=False):
+    """numerator_plain at K14's points: its plain version (kernels
+    False), or the K1 / K10 / K11 sequence K14 replaced, the points'
+    x product included."""
+    from gnark_tpu_torch.backend.plonk_num import numerator_plain
+    return numerator_plain(ff, cols, pts.x(ff), pts.table(ff, pts.zh),
+                           pts.table(ff, pts.zhi), s, kernels=kernels)
 
 
 def phase_kernels_ff_ops(rng, res):
-    """K10-K13 against their plain versions: one row, rows not a power of
+    """K10-K14 against their plain versions: one row, rows not a power of
     two, 2^16 and 2^20 rows, a third of each operand in [p, 2p) and a
     zero row in every 97 (0 and p); K11 on all zeros, a whole tile of
     zero rows, one nonzero row among zeros, at its least tile (2048 rows)
@@ -2018,14 +2061,19 @@ def phase_kernels_ff_ops(rng, res):
     threads) and at 2^21 (the openings: longer tiles); K12 without zeros
     at its tile (8192 rows) - 1, + 0, + 1, 2^20, 2^22 + 1 and 2^24 + 3
     rows (2,049 tiles: the look-back over thousands of tiles and many
-    waves), and with one zero inside (every later prefix 0); K13 past one
-    first-pass block and at n = 1. Then the CUDA kernels one call of each
-    starts, by the profiler."""
+    waves), and with one zero inside (every later prefix 0); K13 dot
+    and dot_many at n = 1, 256, 257 (past one block) and 2^18 + 1 with 1,
+    5 and 9 columns (9: two launches), each column a row shorter than the
+    last; K14 at n = 1, 255, 256, 257 and 2^16 + 3 with one Z_H and a
+    period-4 table, also against the K1 / K10 / K11 sequence it
+    replaced. Then the CUDA kernels one call of each starts, by the
+    profiler."""
     import torch
+    from gnark_tpu_torch.backend.plonk_num import plonk_numerator
     from gnark_tpu_torch.ff import get_ff, ops
     fr = get_ff("bn254_fr")
     q = fr.p.modulus
-    err = {k: 0 for k in ("ff_addsub", "batch_inv", "scan_mul", "dot")}
+    err = {k: 0 for k in FF_OPS_KERNELS}
 
     def agree(name, got, want, shape):
         check(torch.equal(got, want), f"{name} {shape} disagrees with its "
@@ -2070,22 +2118,47 @@ def phase_kernels_ff_ops(rng, res):
     for what, a in scan_cases.items():
         agree("scan_mul", ops.scan_mul(fr, a), scan_plain(fr, a), what)
     del inv_cases, scan_cases, a
+    for n in (1, 256, 257, (1 << 18) + 1):
+        pows = dev_rows(fr, n, gen)
+        for k in (1, 5, 9):          # nine: two launches of up to eight
+            cols = [dev_rows(fr, max(n - j, 1), gen) for j in range(k)]
+            agree("dot_many", ops.dot_many(fr, cols, pows),
+                  ops.dot_many_plain(fr, cols, pows), (n, k))
+        agree("dot", ops.dot(fr, cols[0], pows), ops.dot_plain(
+            fr, cols[0], pows), n)
+        agree("dot", ops.dot(fr, pows), ops.dot_plain(fr, pows), n)
+    del pows, cols
+    for n in (1, 255, 256, 257, (1 << 16) + 3):
+        for period in (1, 4):
+            cols, pts, sc = num_case(fr, n, period, gen, rng)
+            got = plonk_numerator(fr, cols, pts, sc)
+            agree("plonk_numerator", got, num_plain(fr, cols, pts, sc),
+                  (n, period))
+            agree("plonk_numerator", got, num_plain(fr, cols, pts, sc, True),
+                  (n, period, "the K1 / K10 / K11 sequence"))
+    del cols, pts, got
     for k, v in err.items():
         res[k]["max_abs_err"] = v
     log("K10 ff_addsub, K11 batch_inv, K12 scan_mul, K13 dot: n = 1, 5, "
         "2049, 2^16, 2^20 with lazy inputs and zeros; K11 on a tile of "
         "zeros, all zeros, one nonzero row, n = 2047, 2048, 2049, 2^19, "
         "2^19 + 1, 2^21; K12 with a zero inside and at n = 8191, 8192, "
-        "8193, 2^20, 2^22 + 1, 2^24 + 3: bit-exact against their plain "
-        "versions")
+        "8193, 2^20, 2^22 + 1, 2^24 + 3; K13 dot and dot_many (1, 5, 9 "
+        "columns of unequal lengths) at n = 1, 256, 257, 2^18 + 1; K14 at "
+        "n = 1, 255, 256, 257, 2^16 + 3, period 1 and 4, also against the "
+        "K1 / K10 / K11 sequence: bit-exact against their plain versions")
     a = rand_words(fr, 1 << 20, rng)
+    cols, pts, sc = num_case(fr, 1 << 20, 1, gen, rng)
+    pts.zdiv(fr)                   # its points' kept column, made once
     calls = {"ff_addsub": lambda: ops.add(fr, a, a),
              "batch_inv": lambda: ops.batch_inv(fr, a),
              "scan_mul": lambda: ops.scan_mul(fr, a),
-             "dot": lambda: ops.dot(fr, a, a)}
+             "dot": lambda: ops.dot(fr, a, a),
+             "dot_many": lambda: ops.dot_many(fr, [a] * 5, a),
+             "plonk_numerator": lambda: plonk_numerator(fr, cols, pts, sc)}
     seen = {k: cuda_kernels(fn) for k, fn in calls.items()}
     if not any(seen.values()):
-        log("CUDA kernels a call of K10-K13: not measured (the profiler "
+        log("CUDA kernels a call of K10-K14: not measured (the profiler "
             "saw no device activity)")
         return
     counts = {}
@@ -2176,8 +2249,10 @@ def phase_plonk20(res):
     """plonk_20: BN254 PLONK on 2^20 - 1 squaring-chain gates, N = 2^20
     (the rho path): an SRS of 2^20 + 8 (one ladder and one affine_words
     launch), setup, three proves with every launch count set to 0 first
-    (K10-K13, K1, K2 and the bucket MSM must launch; K3 and K5 must
-    not), verify, and a tampered claimed value and a tampered commitment
+    (K10-K14, K1, K2 and the bucket MSM must launch; K3 and K5 must
+    not; each steady prove: K14 once a shift, K11 3, K12 8, K13 three
+    calls of one kernel, K1 at most 135 and K10 at most 54 times),
+    verify, and a tampered claimed value and a tampered commitment
     refused."""
     from gnark_tpu_torch.backend import kzg, plonk
     from gnark_tpu_torch.backend.groth16_check import plonk_square_chain
@@ -2212,30 +2287,39 @@ def phase_plonk20(res):
         wr.launches = 0
     sec = [i + 2 for i in range(PLONK_CHAINS)]
     proofs = []
+    # a steady prove's calls: exactly, or at most (K1, K10)
+    want = {"plonk_numerator": 4, "batch_inv": 3, "scan_mul": 8,
+            "dot_many": 1, "dot": 2}
+    most = {"mont_mul": 135, "ff_addsub": 54}
     for i in range(3):
         tm = {}
-        was = (ops.batch_inv.launches, ops.scan_mul.launches)
+        was = {wr.__name__: wr.launches for wr in wrappers}
         t = time.perf_counter()
         proofs.append(plonk.prove(cs, pk, [], sec, rng=random.Random(4 + i),
                                   timings=tm, device=DEV))
         tm["total"] = time.perf_counter() - t
-        calls = (ops.batch_inv.launches - was[0],
-                 ops.scan_mul.launches - was[1])
-        log(f"plonk_20 prove {i} (s): {fmt_times(tm)}; batch_inv, "
-            f"scan_mul calls: {calls}")
-        if i:       # the steady proves (the first also builds the domains)
-            check(calls == (7, 8), f"plonk_20 prove {i}: batch_inv and "
-                  f"scan_mul called {calls} times, not (7, 8)")
+        calls = {k: ({wr.__name__: wr.launches for wr in wrappers}[k]
+                     - was[k]) for k in list(want) + list(most)}
+        log(f"plonk_20 prove {i} (s): {fmt_times(tm)}; calls: "
+            + json.dumps(calls))
+        if i:       # the steady proves (the first also builds the domains
+            #         and the shifts' kept Z_H(x) / (x - 1) columns)
+            for k, v in want.items():
+                check(calls[k] == v, f"plonk_20 prove {i}: {k} called "
+                      f"{calls[k]} times, not {v}")
+            for k, v in most.items():
+                check(calls[k] <= v, f"plonk_20 prove {i}: {k} called "
+                      f"{calls[k]} times, more than {v}")
     launches = {wr.__name__: wr.launches for wr in wrappers}
     log("launches during 3 plonk_20 proves: " + json.dumps(launches))
-    for k in ("ff_addsub", "batch_inv", "scan_mul", "dot", "mont_mul",
-              "fourstep_ntt", "bucket_digits", "bucket_msm",
-              "bucket_reduce"):
+    for k in ("ff_addsub", "batch_inv", "scan_mul", "dot", "dot_many",
+              "plonk_numerator", "mont_mul", "fourstep_ntt", "bucket_digits",
+              "bucket_msm", "bucket_reduce"):
         check(launches[k] > 0, f"plonk_20: {k} was not launched")
     for k in ("proj_add", "proj_double", "radix2_ntt", "row_fft"):
         check(launches[k] == 0, f"plonk_20: {k} was launched "
               f"{launches[k]} times")
-    for k in ("ff_addsub", "batch_inv", "scan_mul", "dot"):
+    for k in FF_OPS_KERNELS:
         res[k]["launches"] = launches[k]
     proof = proofs[1]
     t = time.perf_counter()
@@ -2250,17 +2334,22 @@ def phase_plonk20(res):
 
 
 def times_ff_ops(res, put, rng, n=1 << 20):
-    """K10-K13 at plonk_20's shapes (N = 2^20; K11 also at the openings'
+    """K10-K14 at plonk_20's shapes (N = 2^20; K11 also at the openings'
     2N), each against its plain version on the same inputs. Bounds: K10
     the bytes (two reads and a write, or one read and a write with the
     broadcast operand); K11 three products an element (the trick's least
     work; its one inversion a call, ~600 divsteps, not counted); K12 the
     larger of its 64 B an element and n - 1 products (a sequential
     scan's work; the kernel does two products an element, 2n products'
-    time logged beside); K13 n products (its adds not counted); each
-    against its bytes. Times are CUDA-event times of the wrapper's call,
-    its host work before the launch included (ff_ops_times.py gives
-    K11's and K12's device time by kernel)."""
+    time logged beside); K13 a sop2 (two products, one reduction) for
+    two elements of a column (its adds not counted), against its bytes
+    (each column and the powers read once); K14 its 4,864 multiplies a
+    row against its 15 reads and a write of 32 B. Times are CUDA-event
+    times of the wrapper's call, its host work before the launch
+    included (ff_ops_times.py gives device time by kernel, beside the
+    parent tree's)."""
+    import torch
+    from gnark_tpu_torch.backend.plonk_num import plonk_numerator
     from gnark_tpu_torch.ff import get_ff, ops
     fr = get_ff("bn254_fr")
     mul = MUL_OPS["mul"]
@@ -2271,8 +2360,37 @@ def times_ff_ops(res, put, rng, n=1 << 20):
         put("ff_addsub", sfx, [n, 8], ms, pms, nb, 0, max_abs(got, want))
     ms, got = timed(lambda: ops.dot(fr, a, b))
     pms, want = timed(lambda: ops.dot_plain(fr, a, b), 3)
-    put("dot", "", [n, 8], ms, pms, 2 * n * 32 + 32, n * mul,
-        max_abs(got, want))
+    put("dot", "", [n, 8], ms, pms, 2 * n * 32 + 32,
+        n * MUL_OPS["sop2"] // 2, max_abs(got, want))
+    # the evaluations' batch: five columns (l, r, o, s1, s2 of plonk_20:
+    # N + 2 rows and N; here n) against one powers vector
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    cols = [dev_rows(fr, n - (j % 2) * 2, gen) for j in range(5)]
+    ms, got = timed(lambda: ops.dot_many(fr, cols, b))
+    pms, want = timed(lambda: ops.dot_many_plain(fr, cols, b), 3)
+    rows = sum(c.shape[0] for c in cols)
+    put("dot_many", "", [5, n, 8], ms, pms, (rows + n + 5) * 32,
+        rows * MUL_OPS["sop2"] // 2, max_abs(got, want))
+    ms5, got5 = timed(lambda: torch.cat([ops.dot(fr, c, b[:c.shape[0]])
+                                         for c in cols]))
+    check(torch.equal(got5, got), "dot_many: five dot calls disagree")
+    res["dot_many"]["five_dot_ms"] = ms5
+    log(f"dot_many [5, {n}, 8]: {ms:.4f} ms; five dot calls {ms5:.4f} ms")
+    del cols, got5
+    cols, pts, sc = num_case(fr, n, 1, gen, rng)
+    ms, got = timed(lambda: plonk_numerator(fr, cols, pts, sc))
+    pms, want = timed(lambda: num_plain(fr, cols, pts, sc), 1, False)
+    put("plonk_numerator", "", [n, 8], ms, pms, 16 * n * 32,
+        n * MUL_OPS["numerator"], max_abs(got, want))
+    sms, seq = timed(lambda: num_plain(fr, cols, pts, sc, True))
+    check(torch.equal(seq, got), "plonk_numerator: the K1 / K10 / K11 "
+          "sequence disagrees")
+    res["plonk_numerator"]["sequence_ms"] = sms
+    log(f"plonk_numerator [{n}, 8]: {ms:.4f} ms; the K1 / K10 / K11 "
+        f"sequence it replaced (45 launches) {sms:.4f} ms; the bytes "
+        f"alone {bound_ms(16 * n * 32, 0, put.rate)[0]:.4f} ms")
+    del cols, pts, got, want, seq
     ms, got = timed(lambda: ops.scan_mul(fr, a))
     pms, want = timed(lambda: ops.scan_mul_plain(fr, a), 3)
     put("scan_mul", "", [n, 8], ms, pms, 2 * n * 32, (n - 1) * mul,
@@ -2359,6 +2477,14 @@ KERNELS = {
     "dot": ("gnark_tpu_torch/csrc/ff_ops.cu",
             "none: gnark_tpu/backend/plonk_device.py:66 ff_sum over "
             "ff.mul (XLA), dev_poly_eval:80 and _s4_evals:365"),
+    "dot_many": ("gnark_tpu_torch/csrc/ff_ops.cu",
+                 "none: gnark_tpu/backend/plonk_device.py:66 ff_sum over "
+                 "ff.mul (XLA), one a column in _s4_evals:377-380"),
+    "plonk_numerator": ("gnark_tpu_torch/csrc/plonk_num.cu",
+                        "none: gnark_tpu/backend/plonk_device.py:327 "
+                        "_numerator_t (one XLA expression: FF.mul, add, "
+                        "sub, batch_inv), from _rho_quotient:800 and "
+                        "_s3_num_commit:300"),
 }
 
 

@@ -9,7 +9,8 @@ words; the host sequences Fiat-Shamir and handles O(1) scalars
 (blinding factors, claimed values).
 
 Kernels: K1 (ff/mont_mul) for products, K10-K13 (ff/ops: add / sub,
-batch_inv, scan_mul, dot) for the rest of the field work, K5 / K2
+batch_inv, scan_mul, dot / dot_many) for the rest of the field work, K14
+(backend/plonk_num) for the quotient's numerator, K5 / K2
 (ntt.Domain) for the transforms, the bucket MSM (K4, K9) for the KZG
 commitments. Where the reference computes an O(1) scalar on the device
 (zeta^N, l1(zeta), the linearization's coefficients) the port computes
@@ -21,8 +22,10 @@ The stages of prove:
     product (scan_mul), iFFT, blind, commit
   3 the quotient: the columns on the 4N coset (or, at N >=
     2^RHO_MIN_LOG, on four N-point shifts: the rho path), the
-    numerator, the coset iFFT, three shards, 3 commits
-  4 the evaluations at zeta (one dot each) and the linearized polynomial
+    numerator (one K14 launch a set of points), the coset iFFT, three
+    shards, 3 commits
+  4 the evaluations at zeta (K13: one launch for the columns at zeta,
+    one for z at w zeta, one for the linearized polynomial)
   5 the folded opening at zeta and Z's at omega zeta, by
     evaluate-and-divide on a 2N domain, 2 commits
 """
@@ -37,6 +40,7 @@ import torch
 
 from gnark_tpu_torch.backend import kzg as kzg_mod
 from gnark_tpu_torch.backend.groth16 import _mark_fn, _words_u64
+from gnark_tpu_torch.backend.plonk_num import NumPoints, plonk_numerator
 from gnark_tpu_torch.constraint import solve_auto
 from gnark_tpu_torch.cuda import resolve_device
 from gnark_tpu_torch.ff import get_ff, ops
@@ -216,46 +220,18 @@ def _s2_z(ff, dom, L, R, O, pk, beta: int, gamma: int, zb, u: int):
     return _blind(ff, dom.ifft(z_lag), zb)
 
 
-def _numerator(ff, cols, xd, zh, zhi, s):
+def _numerator(ff, cols, pts, s):
     """The quotient's numerator over one set of evaluation points
     (prove.go:1040-1106): gate + alpha ordering + alpha^2 L1 (Z - 1),
-    times 1 / Z_H. zh, zhi: (n, nw) words or host ints (constant)."""
-    q = ff.p.modulus
-    dev = xd.device
-
-    def mul(a, b):
-        return _mul_s(ff, a, b) if isinstance(b, int) else \
-            mont_mul(ff, a, b)
-
-    add, sub = (lambda a, b: ops.add(ff, a, b)), \
-        (lambda a, b: ops.sub(ff, a, b))
-    one = enc(ff, [1], dev)
-    gamma = enc(ff, [s["gamma"]], dev)
-    l, r, o = cols["l"], cols["r"], cols["o"]
-    gate = add(mul(cols["ql"], l), mul(cols["qr"], r))
-    gate = add(gate, mul(cols["qm"], mul(l, r)))
-    gate = add(gate, mul(cols["qo"], o))
-    gate = add(gate, cols["qk"])
-    bx = mul(xd, s["beta"])
-    idp = add(add(l, bx), gamma)
-    idp = mul(idp, add(add(r, mul(bx, s["u"])), gamma))
-    idp = mul(idp, add(add(o, mul(bx, s["u2"])), gamma))
-    sp = add(add(l, mul(cols["s1"], s["beta"])), gamma)
-    sp = mul(sp, add(add(r, mul(cols["s2"], s["beta"])), gamma))
-    sp = mul(sp, add(add(o, mul(cols["s3"], s["beta"])), gamma))
-    ordering = sub(mul(sp, cols["zs"]), mul(idp, cols["z"]))
-    xm1_inv = ops.batch_inv(ff, sub(xd, one))
-    zn = zh * s["Ninv"] % q if isinstance(zh, int) else mul(zh, s["Ninv"])
-    local = mul(mul(xm1_inv, zn), sub(cols["z"], one))
-    numd = add(gate, mul(ordering, s["alpha"]))
-    numd = add(numd, mul(local, s["alpha2"]))
-    return mul(numd, zhi)
+    times 1 / Z_H. pts: plonk_num.NumPoints. One K14 launch on the card;
+    the plain step-by-step composition on the CPU."""
+    return plonk_numerator(ff, cols, pts, s)
 
 
-def _coset_consts(ff, N4: int, period: int, device):
-    """x = g w4^i on the 4N coset, and Z_H(x), 1 / Z_H(x) (period
-    `period`)."""
-    key = (ff.p.name, N4, period, str(device))
+def _coset_points(ff, N4: int, period: int, device):
+    """The 4N coset's points x = g w4^i (a kept column) with their Z_H(x)
+    and 1 / Z_H(x) (period `period`)."""
+    key = ("coset", ff.p.name, N4, period, str(device))
     if key not in _COSET:
         q = ff.p.modulus
         dom4 = get_domain(ff, N4, device)
@@ -263,15 +239,22 @@ def _coset_consts(ff, N4: int, period: int, device):
         gN = pow(g, N4 // period, q)
         w4N = pow(dom4.omega, N4 // period, q)
         zh_vals = [(gN * pow(w4N, i, q) - 1) % q for i in range(period)]
-        zh_inv = [pow(v, -1, q) for v in zh_vals]
         xd = _mul_s(ff, dev_powers(ff, dom4.omega, N4, device), g)
-        tile = torch.arange(N4, device=device) % period
-        _COSET[key] = (xd, enc(ff, zh_vals, device)[tile],
-                       enc(ff, zh_inv, device)[tile])
+        _COSET[key] = NumPoints(xd, 1, tuple(zh_vals),
+                                tuple(pow(v, -1, q) for v in zh_vals), key)
     return _COSET[key]
 
 
 _COSET: dict = {}
+
+
+def _shift_points(ff, wpow, N: int, shift: int):
+    """The rho path's points x = shift w^i (wpow: the N powers of w) with
+    their constant Z_H(x) = shift^N - 1 and its inverse."""
+    q = ff.p.modulus
+    zh = (pow(shift, N, q) - 1) % q
+    return NumPoints(wpow, shift, (zh,), (pow(zh, -1, q),),
+                     ("shift", ff.p.name, N, shift, str(wpow.device)))
 
 
 def _on_coset(dom4, c):
@@ -286,8 +269,8 @@ def _s3_quotient(ff, dom4, cols, qkc, qcps, pi2s, scal, period: int):
         qkx = ops.add(ff, qkx, mont_mul(ff, _on_coset(dom4, qcp_c),
                                         _on_coset(dom4, pi2_c)))
     ev["qk"] = qkx
-    xd, zh_d, zhi_d = _coset_consts(ff, dom4.n, period, qkc.device)
-    return dom4.ifft(_numerator(ff, ev, xd, zh_d, zhi_d, scal), coset=True)
+    pts = _coset_points(ff, dom4.n, period, qkc.device)
+    return dom4.ifft(_numerator(ff, ev, pts, scal), coset=True)
 
 
 def _rho_quotient(ff, dom, dom4, cols, qkc, pk, pi2s, period, N, scal):
@@ -319,28 +302,28 @@ def _rho_quotient(ff, dom, dom4, cols, qkc, pk, pi2s, period, N, scal):
             qkx = ops.add(ff, qkx, mont_mul(ff, eval_shift(qcp_c),
                                             eval_shift(pi2_c)))
         ev["qk"] = qkx
-        zh = (cN - 1) % q
-        chunks.append(_numerator(ff, ev, _mul_s(ff, pk.wpow, shift), zh,
-                                 pow(zh, -1, q), scal))
+        chunks.append(_numerator(ff, ev, _shift_points(ff, pk.wpow, N,
+                                                       shift), scal))
     inter = torch.stack(chunks, dim=1).reshape(period * N, ff.nw)
     return dom4.ifft(inter, coset=True)
 
 
 def _s4_evals(ff, polys, zeta, N, w, Ninv, beta, gamma, alpha, u, device):
-    """The claimed evaluations (one K13 launch each) and the linearized
-    polynomial. Returns (claimed ints, lin words, zu)."""
+    """The claimed evaluations (three K13 launches: l, r, o, s1, s2 and
+    the qcps at zeta in one, z at w zeta, the linearized polynomial at
+    zeta) and the linearized polynomial. Returns (claimed ints, lin
+    words, zu)."""
     q = ff.p.modulus
     maxlen = max(p.shape[0] for p in (polys["l"], polys["h0"], polys["z"]))
     zpows = dev_powers(ff, zeta, maxlen, device)
 
-    def ev(p, pw=zpows):
-        return dev_poly_eval(ff, p, pw)
-
-    lz, rz, oz = ev(polys["l"]), ev(polys["r"]), ev(polys["o"])
-    s1z, s2z = ev(polys["s1"]), ev(polys["s2"])
-    qcpz = [ev(c) for c in polys["qcps"]]
-    zu = ev(polys["z"], dev_powers(ff, w * zeta % q, polys["z"].shape[0],
-                                   device))
+    at_zeta = ops.dot_many(ff, [polys[k] for k in ("l", "r", "o", "s1",
+                                                   "s2")]
+                           + list(polys["qcps"]), zpows)
+    lz, rz, oz, s1z, s2z, *qcpz = (int(v) for v in
+                                   ff.decode_words(at_zeta.cpu()))
+    zu = dev_poly_eval(ff, polys["z"], dev_powers(
+        ff, w * zeta % q, polys["z"].shape[0], device))
 
     zh_zeta = (pow(zeta, N, q) - 1) % q
     l1_zeta = zh_zeta * _inv0(zeta - 1, q) % q * Ninv % q
@@ -362,7 +345,7 @@ def _s4_evals(ff, polys, zeta, N, w, Ninv, beta, gamma, alpha, u, device):
         + [polys["s3"], polys["z"], polys["h0"], polys["h1"], polys["h2"]],
         [lz, rz, lz * rz % q, oz, 1] + qcpz
         + [s1c, coeff_z, zh, zhp, zhp * zp2 % q])
-    claimed = [ev(lin), lz, rz, oz, s1z, s2z] + qcpz
+    claimed = [dev_poly_eval(ff, lin, zpows), lz, rz, oz, s1z, s2z] + qcpz
     return claimed, lin, zu
 
 

@@ -5,7 +5,8 @@
 //   gt_batch_inv   K11  out = 1 / a (0 -> 0), Montgomery's trick
 //   gt_scan_mul    K12  out[i] = a[0] * ... * a[i], the inclusive prefix
 //                       product
-//   gt_dot         K13  out = sum_i a[i] * b[i] (or sum_i a[i]), one element
+//   gt_dot_many    K13  out[j] = sum_i c_j[i] * pw[i] (or sum_i c_j[i]) for
+//                       up to GT_DOT_K columns c_j, one element each
 //
 // None replaces a TPU kernel: the reference runs each as XLA ops around
 // its Pallas ones (gnark_tpu/ff/mont.py FF.add / FF.sub / FF.batch_inv,
@@ -40,9 +41,12 @@
 //    (that held fewer blocks a multiprocessor and took more products a
 //    row); the tile's product and, once the earlier tiles' are known,
 //    its inclusive prefix are published beside a flag;
-//  * K13 by operations at one product an element, and by bytes (64 B an
-//    element); the sum is a tree in shared memory, then one block over
-//    the blocks' sums.
+//  * K13 by operations at one product an element a column, and by bytes
+//    (32 B an element a column, and pw's 32 B a row once for all k
+//    columns). One launch (in place of two: a shared-memory tree, then one
+//    block over the blocks' sums): one wave of blocks, two rows a thread
+//    an iteration, warp shuffles for the block's sums, and the last block
+//    to finish (an atomic ticket) adds the blocks' sums.
 // Every element is one 32-byte sector, so any row order reads whole
 // sectors; K10, K11 and K13 put neighbouring threads on neighbouring
 // rows, K12 each thread on consecutive rows (lanes 512 B apart, every
@@ -57,7 +61,8 @@
 #define GT_SCAN_E 16                 // rows a thread in K12
 #define GT_SCAN_C (GT_SCAN_E * GT_SCAN_T)  // rows a tile of K12 (8192)
 static_assert((1 << GT_WARPS_LOG) == GT_WARPS, "GT_WARPS_LOG");
-#define GT_DOT_MAXB 1024             // blocks of K13's first pass at most
+#define GT_DOT_MAXB 1024             // blocks of a K13 launch at most
+#define GT_DOT_K 8                   // columns of a K13 launch at most
 #define GT_FULL 0xFFFFFFFFu
 
 __global__ void addsub_kernel(const uint32_t* __restrict__ a,
@@ -443,34 +448,112 @@ __global__ void __launch_bounds__(GT_SCAN_T)
   }
 }
 
-// Each thread sums a[i] b[i] (or a[i]) over i = its index + k * (all
-// threads), lazily; the block adds its threads' sums by a tree and
-// thread 0 writes the block's sum, canonical.
-__global__ void __launch_bounds__(GT_FB)
-    dot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               uint32_t* __restrict__ out, long long n, int has_b,
-               FieldC F) {
-  __shared__ Fp s[GT_FB];
-  const int t = threadIdx.x;
-  const long long stride = (long long)gridDim.x * GT_FB;
-  Fp acc, x, y;
-  set_zero(acc);
-  for (long long i = blockIdx.x * (long long)GT_FB + t; i < n; i += stride) {
-    ld(x, a + i * GT_NW);
-    if (has_b) {
-      ld(y, b + i * GT_NW);
-      x = mul_lazy(x, y, F);
+// ---------------------------------------------------------------------
+// K13
+// ---------------------------------------------------------------------
+
+// columns of one K13 launch, each at most as long as the vector it is
+// multiplied by, zero past its end
+struct DotCols {
+  const uint32_t* c[GT_DOT_K];
+  long long len[GT_DOT_K];
+};
+
+// The sums acc[0 .. k) of every thread of the block -> tot[0 .. k) in
+// shared memory: five xor-shuffle levels in each warp, then thread j < k
+// adds column j's sums of the warps. Every thread of the block calls.
+__device__ __forceinline__ void block_sums(Fp* acc, int k, Fp* tot,
+                                           const FieldC& F) {
+  __shared__ Fp ws[GT_WARPS][GT_DOT_K];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < GT_DOT_K; ++j) {
+    if (j < k) {
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1)
+        acc[j] = add2p(acc[j], shfl_xor(acc[j], d), F);
+      if (lane == 0) ws[w][j] = acc[j];
     }
-    acc = add2p(acc, x, F);
   }
-  s[t] = acc;
   __syncthreads();
-#pragma unroll 1
-  for (int h = GT_FB / 2; h > 0; h >>= 1) {
-    if (t < h) s[t] = add2p(s[t], s[t + h], F);
-    __syncthreads();
+  if (threadIdx.x < k) {
+    Fp s = ws[0][threadIdx.x];
+#pragma unroll
+    for (int v = 1; v < GT_WARPS; ++v) s = add2p(s, ws[v][threadIdx.x], F);
+    tot[threadIdx.x] = s;
   }
-  if (t == 0) st(out + (long long)blockIdx.x * GT_NW, canon(s[0], F));
+  __syncthreads();
+}
+
+// One launch: out[j] = sum_i c_j[i] pw[i] (pw null: sum_i c_j[i]) for
+// the k <= GT_DOT_K columns, rows below n = their longest. Thread t of
+// block b takes rows b GT_FB + t + m S, S all the threads, two rows an
+// iteration (their loads issued together; with pw one sop2 a column,
+// both products in one reduction), one lazy sum a column in registers.
+// Each block publishes its k sums in part; the last block to finish
+// (an atomic ticket in *ticket, zero at the launch) adds every block's,
+// writes out, canonical, and sets the ticket back to zero for the next
+// launch on the stream.
+__global__ void __launch_bounds__(GT_FB)
+    dot_kernel(DotCols C, const uint32_t* __restrict__ pw,
+               uint32_t* __restrict__ out, uint32_t* part,
+               unsigned* ticket, long long n, int k, FieldC F) {
+  __shared__ Fp tot[GT_DOT_K];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  const long long S = (long long)gridDim.x * GT_FB;
+  Fp acc[GT_DOT_K];
+#pragma unroll
+  for (int j = 0; j < GT_DOT_K; ++j) set_zero(acc[j]);
+  for (long long i = blockIdx.x * (long long)GT_FB + t; i < n; i += 2 * S) {
+    const long long i2 = i + S;
+    Fp p, p2, x, x2;
+    if (pw) {
+      ld(p, pw + i * GT_NW);
+      if (i2 < n)
+        ld(p2, pw + i2 * GT_NW);
+      else
+        set_zero(p2);
+    }
+#pragma unroll
+    for (int j = 0; j < GT_DOT_K; ++j) {
+      if (j < k) {
+        if (i < C.len[j])
+          ld(x, C.c[j] + i * GT_NW);
+        else
+          set_zero(x);
+        if (i2 < C.len[j])
+          ld(x2, C.c[j] + i2 * GT_NW);
+        else
+          set_zero(x2);
+        acc[j] = add2p(acc[j], pw ? sop2(x, p, x2, p2, F) : add2p(x, x2, F),
+                       F);
+      }
+    }
+  }
+  block_sums(acc, k, tot, F);
+  if (t < k) st(part + ((long long)blockIdx.x * GT_DOT_K + t) * GT_NW, tot[t]);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int j = 0; j < GT_DOT_K; ++j) set_zero(acc[j]);
+  for (long long b = t; b < gridDim.x; b += GT_FB) {
+#pragma unroll
+    for (int j = 0; j < GT_DOT_K; ++j) {
+      if (j < k) {
+        Fp x;
+        ld_cg(x, part + (b * GT_DOT_K + j) * GT_NW);
+        acc[j] = add2p(acc[j], x, F);
+      }
+    }
+  }
+  block_sums(acc, k, tot, F);
+  if (t < k) st(out + (long long)t * GT_NW, canon(tot[t], F));
+  if (t == 0) *ticket = 0;      // every block has taken its ticket
 }
 
 static unsigned blocks_of(long long n, int T) {
@@ -550,26 +633,43 @@ extern "C" int gt_scan_mul(const void* a, void* out, void* scratch,
   return (int)cudaGetLastError();
 }
 
-// scratch: GT_DOT_MAXB rows for the first pass's block sums
-extern "C" int gt_dot(const void* a, const void* b, void* out,
-                      void* scratch, long long n, const void* consts,
-                      void* stream) {
-  if (n <= 0) return 0;
-  FieldC F = field_from_host((const uint32_t*)consts);
-  cudaStream_t s = (cudaStream_t)stream;
-  long long nb = blocks_of(n, GT_FB);
-  if (nb > GT_DOT_MAXB) nb = GT_DOT_MAXB;
-  const int has_b = b != nullptr;
-  if (nb == 1) {
-    dot_kernel<<<1, GT_FB, 0, s>>>((const uint32_t*)a, (const uint32_t*)b,
-                                   (uint32_t*)out, n, has_b, F);
-    return (int)cudaGetLastError();
+// Blocks of one K13 launch: one wave of the card, at most GT_DOT_MAXB,
+// at least two rows a thread.
+static long long dot_blocks(long long n) {
+  static long long wave[64];           // blocks of one wave, by device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (!wave[dev]) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dot_kernel, GT_FB,
+                                                  0);
+    wave[dev] = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   }
-  dot_kernel<<<(unsigned)nb, GT_FB, 0, s>>>(
-      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)scratch, n, has_b, F);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  dot_kernel<<<1, GT_FB, 0, s>>>((const uint32_t*)scratch, nullptr,
-                                 (uint32_t*)out, nb, 0, F);
+  long long nb = (n + 2 * GT_FB - 1) / (2 * GT_FB);
+  if (nb > wave[dev]) nb = wave[dev];
+  return nb < GT_DOT_MAXB ? nb : GT_DOT_MAXB;
+}
+
+// cols, lens: k <= GT_DOT_K host arrays (device pointers, rows); pw: n
+// rows or null; n >= every len; out: k rows; scratch: a row whose first
+// word, the ticket, is zero (and is zero again after the launch), then
+// GT_DOT_MAXB GT_DOT_K rows for the blocks' sums: one scratch a stream
+// (ff/ops.py dot_scratch). One launch.
+extern "C" int gt_dot_many(const void* const* cols, const long long* lens,
+                           const void* pw, void* out, void* scratch, int k,
+                           long long n, const void* consts, void* stream) {
+  if (n <= 0 || k <= 0) return 0;
+  if (k > GT_DOT_K) return (int)cudaErrorInvalidValue;
+  DotCols C;
+  for (int j = 0; j < GT_DOT_K; ++j) {
+    C.c[j] = (const uint32_t*)cols[j < k ? j : 0];
+    C.len[j] = j < k ? lens[j] : 0;
+  }
+  FieldC F = field_from_host((const uint32_t*)consts);
+  dot_kernel<<<(unsigned)dot_blocks(n), GT_FB, 0, (cudaStream_t)stream>>>(
+      C, (const uint32_t*)pw, (uint32_t*)out, (uint32_t*)scratch + GT_NW,
+      (unsigned*)scratch, n, k, F);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("mont_mul", "row_fft", "proj_ec", "bucket_msm", "butterfly",
-           "jac_ec", "bucket_reduce", "ladder", "ff_ops")
+           "jac_ec", "bucket_reduce", "ladder", "ff_ops", "plonk_num")
 HEADERS = ("mont.cuh", "proj.cuh", "jac.cuh", "fp2s.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -6,6 +6,7 @@
   batch_inv  K11: 1 / a elementwise, 0 -> 0 (Montgomery's trick)
   scan_mul   K12: the inclusive prefix product a[0] * ... * a[i]
   dot        K13: sum_i a[i] * b[i], or sum_i a[i] without b; (1, nw)
+  dot_many   K13: sum_i c_j[i] * pows[i] for k columns c_j; (k, nw)
 
 None of them replaces a TPU kernel: the reference runs them as XLA ops
 (gnark_tpu/ff/mont.py FF.add / FF.sub / FF.batch_inv:330,
@@ -29,7 +30,8 @@ from gnark_tpu_torch.ff.mont import FF
 
 INV_TILE = 8 * 256        # K11's least rows a tile (GT_INV_E * GT_FB)
 SCAN_TILE = 16 * 512      # rows a tile of K12 (GT_SCAN_C)
-DOT_MAXB = 1024           # K13's first-pass blocks at most (GT_DOT_MAXB)
+DOT_MAXB = 1024           # K13's blocks a launch at most (GT_DOT_MAXB)
+DOT_K = 8                 # K13's columns a launch at most (GT_DOT_K)
 
 
 def _limbs(ff: FF, w):
@@ -71,6 +73,11 @@ def dot_plain(ff: FF, a, b=None):
     return ff.to_words(x[:1])
 
 
+def dot_many_plain(ff: FF, cols, pows):
+    """dot_plain of each column by the first len(column) rows of pows."""
+    return torch.cat([dot_plain(ff, c, pows[:c.shape[0]]) for c in cols])
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -88,13 +95,32 @@ def _check(ff: FF, what: str, a, b=None, bcast=False):
             raise ValueError(f"{what}: operands on different devices")
 
 
+def _check_dot(ff: FF, what: str, cols, pows):
+    """Columns and pows (m, nw) int32 words on one device, each column
+    1 to m rows."""
+    if not cols:
+        raise ValueError(f"{what}: no columns")
+    for t in list(cols) + [pows]:
+        if t.dim() != 2 or t.shape[1] != ff.nw or t.shape[0] == 0:
+            raise ValueError(f"{what}: expected (n >= 1, {ff.nw}) words, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{what}: expected int32 words, got {t.dtype}")
+        if t.device != cols[0].device:
+            raise ValueError(f"{what}: operands on different devices")
+    if max(c.shape[0] for c in cols) > pows.shape[0]:
+        raise ValueError(f"{what}: a column is longer than pows "
+                         f"({pows.shape[0]} rows)")
+
+
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     sig = {"gt_ff_addsub": (3, [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_void_p]),
            "gt_batch_inv": (3, [ctypes.c_longlong, ctypes.c_void_p]),
            "gt_scan_mul": (3, [ctypes.c_longlong, ctypes.c_void_p]),
-           "gt_dot": (4, [ctypes.c_longlong, ctypes.c_void_p])}[name]
+           "gt_dot_many": (5, [ctypes.c_int, ctypes.c_longlong,
+                               ctypes.c_void_p])}[name]
     return cuda.bind("ff_ops", name, *sig)
 
 
@@ -205,26 +231,66 @@ def _scan_mul_card(ff: FF, a):
 
 
 def dot(ff: FF, a, b=None):
-    """sum_i a[i] * b[i] (b None: sum_i a[i]) as (1, nw) words. On the
-    card: block sums (at most 1024 blocks), then one block over them;
-    two kernels (one below 257 rows)."""
+    """sum_i a[i] * b[i] (b None: sum_i a[i]) as (1, nw) words, b as
+    long as a. On the card: one kernel (dot_many's with one column)."""
     _check(ff, "dot", a, b)
     if a.shape[0] == 0:
         raise ValueError("dot: no rows")
     if a.device.type == "cpu":
         return dot_plain(ff, a, b)
-    a = cuda.dev_words(a, "dot")
-    b = None if b is None else cuda.dev_words(b, "dot")
-    out = torch.empty((1, ff.nw), dtype=torch.int32, device=a.device)
-    scratch = torch.empty((DOT_MAXB, ff.nw), dtype=torch.int32,
-                          device=a.device)
-    rc = _fn("gt_dot")(a.data_ptr(), None if b is None else b.data_ptr(),
-                       out.data_ptr(), scratch.data_ptr(), a.shape[0],
-                       cuda.field_consts(ff.p.name).ctypes.data,
-                       cuda.stream(a))
-    cuda.check(rc, "dot")
+    out = _dot_card(ff, [a], b)
     dot.launches += 1
     return out
 
 
 dot.launches = 0
+
+
+def dot_many(ff: FF, cols, pows):
+    """For each column c_j: sum_i c_j[i] * pows[i] as (k, nw) canonical
+    words; each column at most len(pows) rows and zero past its end. On
+    the card: one kernel a DOT_K columns, each reading pows once."""
+    _check_dot(ff, "dot_many", cols, pows)
+    if pows.device.type == "cpu":
+        return dot_many_plain(ff, cols, pows)
+    outs = []
+    for s in range(0, len(cols), DOT_K):
+        outs.append(_dot_card(ff, cols[s:s + DOT_K], pows))
+        dot_many.launches += 1
+    return torch.cat(outs)
+
+
+dot_many.launches = 0
+
+
+_DOT_SCRATCH: dict = {}   # (device, stream) -> K13's scratch
+
+
+def dot_scratch(device, stream: int) -> torch.Tensor:
+    """K13's scratch for launches on one stream, made zero once: a row
+    whose first word is the blocks' ticket (the last block sets it back
+    to 0), then DOT_MAXB * DOT_K rows for the blocks' sums."""
+    key = (str(device), stream)
+    if key not in _DOT_SCRATCH:
+        _DOT_SCRATCH[key] = torch.zeros((1 + DOT_MAXB * DOT_K, 8),
+                                        dtype=torch.int32, device=device)
+    return _DOT_SCRATCH[key]
+
+
+def _dot_card(ff: FF, cols, pows):
+    """One K13 launch over at most DOT_K columns (pows None: sums)."""
+    cols = [cuda.dev_words(c, "dot") for c in cols]
+    if pows is not None:
+        pows = cuda.dev_words(pows, "dot")
+    k = len(cols)
+    out = torch.empty((k, ff.nw), dtype=torch.int32, device=cols[0].device)
+    stream = cuda.stream(out)
+    ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
+    lens = (ctypes.c_longlong * k)(*[c.shape[0] for c in cols])
+    scratch = dot_scratch(out.device, stream)
+    rc = _fn("gt_dot_many")(ctypes.addressof(ptrs), ctypes.addressof(lens),
+                            None if pows is None else pows.data_ptr(),
+                            out.data_ptr(), scratch.data_ptr(), k, max(lens),
+                            cuda.field_consts(ff.p.name).ctypes.data, stream)
+    cuda.check(rc, "dot")
+    return out

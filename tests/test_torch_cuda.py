@@ -1,9 +1,11 @@
-"""The CUDA kernels K1-K13 (K1 with its fused (a*b - c)*d and affine
+"""The CUDA kernels K1-K14 (K1 with its fused (a*b - c)*d and affine
 entry points, K2 as whole four-step transforms, K5 as whole transforms,
-K8 with its group fold) and the fixed-base ladder against their plain
-PyTorch versions, the scan-path MSM against the bucket path, a
-chunked bucket MSM against the single-shot one, and a small PLONK proof
-made on the card against the same proof made on the CPU.
+K8 with its group fold, K13 over many columns, K14 the PLONK quotient's
+numerator also against the sequence it replaced) and the fixed-base
+ladder against their plain PyTorch versions, the scan-path MSM against
+the bucket path, a chunked bucket MSM against the single-shot one, a
+small PLONK proof made on the card against the same proof made on the
+CPU, and its two quotient paths against each other on the card.
 Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor gnark_tpu, so it also runs where JAX
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from gnark_tpu_torch import cuda
+from gnark_tpu_torch.backend import plonk_num
 from gnark_tpu_torch.ec import curves, host
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.backend.groth16 import _to_affine_host
@@ -191,6 +194,62 @@ def test_scan_mul_edges(dev, n, zeros):
     assert torch.equal(got, _scan_plain(f, a))
     if zeros:
         assert not got[:zeros[0]].eq(0).all(dim=1).any()
+
+
+@pytest.mark.parametrize("k", [1, 5, 9])
+@pytest.mark.parametrize("n", [1, 256, 257, (1 << 18) + 1])
+def test_dot_many(dev, n, k):
+    """K13 (one launch for up to eight columns) against its plain
+    version: columns of unequal lengths (n, n - 1, ...), nine columns in
+    two launches; dot, its one-column case, with and without b."""
+    f = get_ff("bn254_fr")
+    pows = _dev_rows(f, n, 3 * n, dev)
+    cols = [_dev_rows(f, max(n - j, 1), 3 * n + 1 + j, dev)
+            for j in range(k)]
+    was = ff_ops.dot_many.launches
+    assert torch.equal(ff_ops.dot_many(f, cols, pows),
+                       ff_ops.dot_many_plain(f, cols, pows))
+    assert ff_ops.dot_many.launches - was == -(-k // ff_ops.DOT_K)
+    assert torch.equal(ff_ops.dot(f, cols[0], pows),
+                       ff_ops.dot_plain(f, cols[0], pows))
+    assert torch.equal(ff_ops.dot(f, pows), ff_ops.dot_plain(f, pows))
+
+
+def _num_case(f, n, period, dev):
+    """K14's inputs at n rows: lazy columns, points x = c w, a Z_H table
+    of `period` entries, challenges (seeded)."""
+    q = f.p.modulus
+    rng = random.Random(n * 8 + period)
+    cols = {k: _dev_rows(f, n, rng.randrange(1 << 30), dev)
+            for k in plonk_num.NUM_COLS}
+    zh = tuple(rng.randrange(1, q) for _ in range(period))
+    pts = plonk_num.NumPoints(_dev_rows(f, n, rng.randrange(1 << 30), dev),
+                              rng.randrange(1, q), zh,
+                              tuple(pow(v, -1, q) for v in zh),
+                              ("card test", n, period))
+    s = {k: rng.randrange(q) for k in ("beta", "gamma", "alpha", "u")}
+    s.update(alpha2=s["alpha"] ** 2 % q, u2=s["u"] ** 2 % q,
+             Ninv=rng.randrange(1, q))
+    return cols, pts, s
+
+
+@pytest.mark.parametrize("period", [1, 4])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, (1 << 16) + 3])
+def test_plonk_numerator(dev, n, period):
+    """K14 against its plain version and against the K1 / K10 / K11
+    sequence it replaced (numerator_plain with kernels=True), lazy
+    inputs, one Z_H (the rho path) or a period-4 table (the coset)."""
+    f = get_ff("bn254_fr")
+    cols, pts, s = _num_case(f, n, period, dev)
+    x = pts.x(f)
+    zh, zhi = pts.table(f, pts.zh), pts.table(f, pts.zhi)
+    was = plonk_num.plonk_numerator.launches
+    got = plonk_num.plonk_numerator(f, cols, pts, s)
+    assert plonk_num.plonk_numerator.launches - was == 1
+    assert torch.equal(got, plonk_num.numerator_plain(f, cols, x, zh, zhi,
+                                                      s))
+    assert torch.equal(got, plonk_num.numerator_plain(f, cols, x, zh, zhi,
+                                                      s, kernels=True))
 
 
 @pytest.mark.parametrize("name", ["bn254_fp", "bn254_fr"])
@@ -744,3 +803,39 @@ def test_plonk_card_equals_cpu(dev):
                        device="cpu")
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert plonk.verify(got, vk, pub)
+
+
+def test_rho_and_coset_quotients_equal(dev, monkeypatch):
+    """The cubic PLONK proved on the card on the 4N coset (one K14
+    launch) and, with RHO_MIN_LOG lowered, on the four N-point shifts
+    (four): the same proof."""
+    import dataclasses
+
+    from gnark_tpu_torch import fields
+    from gnark_tpu_torch.backend import kzg, plonk, plonk_device
+    from gnark_tpu_torch.frontend import (Circuit, Public, Secret,
+                                          compile_circuit, witness)
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+
+    class Cubic(Circuit):
+        x: Secret
+        y: Public
+
+        def define(self, api):
+            x3 = api.mul(self.x, self.x, self.x)
+            api.assert_is_equal(api.add(x3, self.x, 5), self.y)
+
+    cs = compile_circuit(Cubic(), fields.BN254_FR, builder_cls=SCSBuilder)
+    srs = kzg.setup_srs("bn254", 64, rng=random.Random(33), device=dev)
+    pk, vk = plonk.setup(cs, srs)
+    pub, sec = witness(Cubic(x=3, y=35), cs)
+    proofs = []
+    for rho_log, launches in ((30, 1), (0, 4)):
+        monkeypatch.setattr(plonk_device, "RHO_MIN_LOG", rho_log)
+        was = plonk_num.plonk_numerator.launches
+        proofs.append(plonk.prove(cs, pk, pub, sec, rng=random.Random(1),
+                                  device=dev))
+        assert plonk_num.plonk_numerator.launches - was == launches
+    assert dataclasses.asdict(proofs[0]) == dataclasses.asdict(proofs[1])
+    assert plonk.verify(proofs[1], vk, pub)
+
