@@ -4,8 +4,12 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
-  2. build: the ten CUDA kernel libraries (one nvcc each, in
-     parallel) and the native witness solver;
+  2. build: the CUDA kernel libraries, one nvcc each, in parallel: the
+     ten sources for BN254 (8 words, the lazy class), and for BLS12-381
+     the point sources at 12 words and the scalar-field sources in the
+     sound class (cuda.builds(): 21 libraries), with each library's
+     seconds and its ptxas register / spill lines; and the native
+     witness solver;
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, mont_mul_sub_mul ((a*b - c)*d, broadcast d) and
      affine_words (Jacobian -> affine in G1 and G2: infinity, Z = 1, Z in
@@ -36,8 +40,13 @@ Phases (any failure exits non-zero):
      quotient's numerator in one launch) at n = 1, 255, 256, 257 and 2^16
      + 3 in both forms (one Z_H, a period-4 table), against its plain
      version and against the K1 / K10 / K11 sequence it replaced; and the
-     CUDA kernels one call of each starts (the profiler's device trace:
-     K11 3, K12 1, K13 1, K14 1);
+     CUDA kernels one call of each starts (the profiler's device trace,
+     in a fresh process: K11 3, K12 1, K13 1, K14 1); then all of this phase again on the
+     BLS12-381 builds (CURVE2): 12-word G1 and G2 for K1's affine kernel,
+     K3, K4 and its digit kernel (255-bit scalars), K6-K9, jac_fold and
+     the ladder on 0, 1, r - 1, r, r + 2 at 255 bits; the scalar field's
+     sound class for K1, K2, K5 and K10-K14, every operand list holding
+     rows in [p, 2p) and a row with both operands at 2p - 1;
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
@@ -45,26 +54,27 @@ Phases (any failure exits non-zero):
      transforms) and 4 K1; the five MSMs are
      checked against one host scalar multiplication each, and H by
      Schwartz-Zippel at a random point;
-     then the first prove again with GNARK_TPU_MSM_IMPL=scan (the
-     scan-path MSM: K6, jac_fold, K8, K7, no K4 or K9): the same proof, and the
-     five MSMs again against their known values;
+     (the scan-path MSM, K6, jac_fold, K8 and K7 with no K4 or K9, is
+     driven by merkle_d12's third prove: on this circuit it took ~25 s
+     of the time limit);
   5. the setup -> prove -> verify path, in three configurations:
      g16_20 (Setup at 2^20: one ladder launch and one affine_words
      launch a group, no K6, K7 or mont_mul; sampled key points against
      host scalar multiplications of the toxic waste, one proof that
      verifies, one tampered proof that does not), merkle_d12 (the Merkle
      membership example at depth 12, N = 2^13, on the radix-2 plan, at
-     most two K5 launches a transform: setup, three proves, verify; a
-     wrong root does not verify) and rc_20 (2^17 secret 64-bit values
+     most two K5 launches a transform: setup, three proves, the third
+     again with GNARK_TPU_MSM_IMPL=scan, the same proof; verify; a wrong
+     root does not verify) and rc_20 (2^17 secret 64-bit values
      range-checked through std/rangecheck, one BSB22
-     commitment over 589,824 wires, N = 2^20: setup, two proves and one
-     on the scan path that must equal the second, verify; a swapped
-     commitment and PoK, and a tampered PoK, do not verify);
+     commitment over 589,824 wires, N = 2^20: setup, a prove, verify; a
+     swapped commitment and PoK, and a tampered PoK, do not verify);
      then PLONK: mimc_plonk (examples/mimc_plonk.py's circuit, SRS 2048)
      and rc_plonk (16 values through std/rangecheck, one BSB22
-     commitment): SRS, setup and a prove on the card, the same prove on
-     the CPU with the keys moved there (the same proof bytes), verify,
-     a wrong public value / a tampered pi2 commitment refused; and
+     commitment): SRS, setup and a prove on the card (the same prove on
+     the CPU, 36-68 s, is left to tests/test_torch_cuda.py:
+     cubic_381_plonk below makes that check), verify, a wrong public
+     value / a tampered pi2 commitment refused; and
      plonk_20 (2^20 - 1 squaring-chain gates of bench.py's PLONK
      circuit, N = 2^20, the quotient's rho path): an SRS of 2^20 + 8
      (one ladder and one affine_words launch), setup, three proves
@@ -73,7 +83,15 @@ Phases (any failure exits non-zero):
      three calls of one kernel, K1 at most 135, K10 at most 54), each
      stage timed by the host
      clock and CUDA events, verify, a tampered claimed value and a
-     tampered commitment refused;
+     tampered commitment refused; then BLS12-381: g16_381_20 (the g16_20
+     circuit over its scalar field: setup, sampled key points against
+     host scalar multiplications, three proves with each MSM's digit
+     kernel, K4 and K9 once, 14 K2 and 4 K1 launches, no K3; the five
+     MSMs against their values from the setup's scalars, H by
+     Schwartz-Zippel, verify, a tampered proof refused), plonk_381_20
+     (plonk_20's circuit and checks over BLS12-381) and cubic_381_plonk
+     (examples/cubic.py's circuit: the card's proof equals the CPU's
+     byte for byte, verify, a wrong public value refused);
   6. every kernel again at the shapes its path gives it, held against
      its plain version on the same inputs (K4 and K9 on the g16_20 setup
      key's columns, 2^20 distinct points, with K4's grouping and passes
@@ -93,11 +111,17 @@ Phases (any failure exits non-zero):
      its path, its time, its bound and its plain version's time, as one
      JSON line; the whole bucket MSM at each window width of SWEEP_C on
      those columns and their first 2^16 and 2^13 points (one group
-     element at every width); then the card's name and power limit, and
-     the device as the last line.
+     element at every width); the same for the BLS12-381 builds on
+     g16_381_20's key columns and setup (the plain K4 on the first 2^16
+     points), its K10-K14 at 2^20 in the sound class,
+     each a row of its own ("name@bls12_381") in the JSON line; then the
+     card's name and power limit, and the device as the last line. Each
+     phase's wall time is logged ("[time]").
 
 Option: --quick stops after phase 3, with phase 6's four-step
-transform, K8 / jac_fold and K10-K14 timings.
+transform, K8 / jac_fold and K10-K14 timings. --kernel-counts CURVE only
+prints, as JSON, the CUDA kernels one call of each of K10-K14 starts
+(phase 3 runs it in a process of its own).
 """
 
 from __future__ import annotations
@@ -114,27 +138,41 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-MUL_OPS = {  # 32-bit multiplies per operation (mul.lo + mul.hi per word pair)
-    "mul": 264,             # one Montgomery product: 2*64 + 2*64 + 8
-    "proj_add": 8 * 264 + 3 * 392,
-    "proj_madd": 7 * 264 + 3 * 392,
-    "proj_dbl": 9 * 264,
-    "proj_add2": 8 * 792 + 3 * 1296,    # G2: Fp2 product = 3 Fp products
-    "proj_madd2": 7 * 792 + 3 * 1296,
-    "proj_dbl2": 9 * 792,
-    # a squaring at its least cost: G1 each cross product once (36 word
-    # products, 64 + 8 to reduce: 208); G2 (a0 + a1)(a0 - a1), 2 a0 a1
-    "jac_madd": 7 * 264 + 4 * 208,      # madd-2007-bl: 7M + 4S
-    "jac_dbl": 2 * 264 + 5 * 208,       # dbl-2009-l: 2M + 5S
-    "jac_madd2": 7 * 792 + 4 * 528,
-    "jac_dbl2": 2 * 792 + 5 * 528,
-    "jac_add": 11 * 264 + 5 * 208,      # add-2007-bl: 11M + 5S
-    "jac_add2": 11 * 792 + 5 * 528,
-    "sop2": 392,            # a sum of two products, one reduction
-    # K14 a row (csrc/plonk_num.cu): 21 products in 13 products, two sop2
-    # and one sop4 (648 = 4 * 128 + 128 + 8): 4,864
-    "numerator": 13 * 264 + 2 * 392 + 648,
-}
+def mul_ops(nw=8):
+    """32-bit multiplies per operation (mul.lo + mul.hi per word pair)
+    on nw-word elements: a Montgomery product 4 nw^2 + nw (264 at 8
+    words, 588 at 12)."""
+    M = 4 * nw * nw + nw            # nw^2 word products, nw^2 to reduce, m
+    SOP2 = 6 * nw * nw + nw         # a sum of two products, one reduction
+    SOP4 = 10 * nw * nw + nw
+    # a squaring at its least cost: G1 each cross product once (nw (nw +
+    # 1) / 2 word products); G2 (a0 + a1)(a0 - a1), 2 a0 a1 (two products)
+    S = nw * (nw + 1) + 2 * nw * nw + nw
+    M2, S2 = 3 * M, 2 * M           # G2: Fp2 product = 3 Fp products
+    return {
+        "mul": M,
+        "proj_add": 8 * M + 3 * SOP2,
+        "proj_madd": 7 * M + 3 * SOP2,
+        "proj_dbl": 9 * M,
+        "proj_add2": 8 * M2 + 3 * 2 * SOP4,   # a G2 sum: a sop4 a lane
+        "proj_madd2": 7 * M2 + 3 * 2 * SOP4,
+        "proj_dbl2": 9 * M2,
+        "sqr": S,
+        "jac_madd": 7 * M + 4 * S,            # madd-2007-bl: 7M + 4S
+        "jac_dbl": 2 * M + 5 * S,             # dbl-2009-l: 2M + 5S
+        "jac_madd2": 7 * M2 + 4 * S2,
+        "jac_dbl2": 2 * M2 + 5 * S2,
+        "jac_add": 11 * M + 5 * S,            # add-2007-bl: 11M + 5S
+        "jac_add2": 11 * M2 + 5 * S2,
+        "sop2": SOP2,
+        # K14 a row (csrc/plonk_num.cu): 21 products in 13 products, two
+        # sop2 and one sop4: 4,864 at 8 words
+        "numerator": 13 * M + 2 * SOP2 + SOP4,
+    }
+
+
+MUL_OPS = mul_ops(8)
+CURVE2 = "bls12_381"  # the second curve on the card (phases 3, 5, 6)
 HBM_BYTES_PER_S = 3.35e12
 DEV = "cuda"          # the card; a rehearsal may set "cpu"
 N_CHAINS, CHAIN_LEN = 2048, 512      # 2^20 constraints
@@ -146,8 +184,12 @@ PLONK_RC_VALUES = 16                 # rc_plonk: 1,392 gates, N = 2^11
 C_MAIN = 8            # the bucket MSM's width at 2^20 points; set in main
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, after its seconds since the start."""
+    print(f"[{time.perf_counter() - T_START:7.1f}]", *a, flush=True)
 
 
 def timed(fn, reps=5, warm=True):
@@ -214,11 +256,14 @@ def raw_words(vals, nw=8):
 
 def rand_words(ff, n, rng, lazy=0):
     """n random canonical Montgomery words; the first `lazy` are pushed
-    into [p, 2p)."""
+    into [p, 2p), the first of them to 2p - 1 (a product of two such
+    operands is the sound class's worst case)."""
     q = ff.p.modulus
     vals = [rng.randrange(q) for _ in range(n)]
     raw = [v * ff.p.R_mod % q for v in vals]
     raw = [v + q if i < lazy else v for i, v in enumerate(raw)]
+    if lazy:
+        raw[0] = 2 * q - 1
     return raw_words(raw, ff.nw)
 
 
@@ -245,7 +290,7 @@ def max_abs(a, b):
         if a.numel() else 0
 
 
-def phase_kernels(rng, res):
+def phase_kernels(rng, res, cv="bn254"):
     import torch
     from gnark_tpu_torch import cuda
     from gnark_tpu_torch.backend.groth16 import _to_affine_host
@@ -267,8 +312,8 @@ def phase_kernels(rng, res):
     from gnark_tpu_torch.ntt.fourstep import (fourstep_ntt, root_powers,
                                               row_fft, row_fft_plain)
 
-    fr = get_ff("bn254_fr")
-    fp = get_ff("bn254_fp")
+    c = curves.CURVES[cv]
+    fr, fp, nbits = get_ff(c.fr.name), get_ff(c.fp.name), c.fr.bits
 
     # K1: 2^16 elements (some in [p, 2p)), plus a broadcast operand
     err = 0
@@ -280,8 +325,8 @@ def phase_kernels(rng, res):
             check(torch.equal(got, want), f"K1 mont_mul {ff.p.name}")
             err = max(err, max_abs(got, want))
     res["mont_mul"]["max_abs_err"] = err
-    log(f"K1 mont_mul: (65536, 8) x (65536|1, 8) fr+fp bit-exact "
-        f"{cuda_ms(lambda: mont_mul(fr, a, b)):.4f} ms")
+    log(f"K1 mont_mul {cv}: (65536, {fr.nw}|{fp.nw}) x (65536|1) fr+fp "
+        f"bit-exact {cuda_ms(lambda: mont_mul(fr, a, b)):.4f} ms")
     # K1's (a*b - c)*d: 2^16 elements, some of each operand in [p, 2p),
     # d per element and broadcast
     err = 0
@@ -294,24 +339,29 @@ def phase_kernels(rng, res):
             check(torch.equal(got, want), f"K1 mont_mul_sub_mul {ff.p.name}")
             err = max(err, max_abs(got, want))
     res["mont_mul_sub_mul"]["max_abs_err"] = err
-    log("K1 mont_mul_sub_mul: (65536, 8) x3 x (65536|1, 8) fr+fp bit-exact")
+    log(f"K1 mont_mul_sub_mul {cv}: 65536 rows x3 x (65536|1) fr+fp "
+        f"bit-exact")
 
     # K2: its per-row entry on rows of 2^10, 2^9 and 2^12 (the cap, 256
-    # threads a block) and 2^13 (a global pass, then two segments)
+    # threads a block) and 2^13 (a global pass, then two segments); the
+    # second curve's build (the same code in the sound class) on 2^10
+    # and 2^13 rows, and two of the four-step cases below
+    full = cv == "bn254"
     err = 0
-    for S in (1 << 10, 1 << 9, 1 << 12, 1 << 13):
-        x = rand_words(fr, 8 * S, rng, lazy=S).reshape(8, S, 8)
+    for S in (1 << 10, 1 << 9, 1 << 12, 1 << 13) if full else \
+            (1 << 10, 1 << 13):
+        x = rand_words(fr, 8 * S, rng, lazy=S).reshape(8, S, fr.nw)
         pw = torch.as_tensor(root_powers(fr, S, fr.p.root_of_unity(S)),
                              device=DEV)
         got, want = row_fft(fr, x, pw), row_fft_plain(fr, x, pw)
         check(torch.equal(got, want), f"K2 row_fft S={S}")
         err = max(err, max_abs(got, want))
-        log(f"K2 row_fft: (8, {S}, 8) bit-exact "
+        log(f"K2 row_fft {cv}: (8, {S}, {fr.nw}) bit-exact "
             f"{cuda_ms(lambda: row_fft(fr, x, pw)):.4f} ms")
     res["row_fft"]["max_abs_err"] = err
     # the host's copy of the segment block's shared-memory size (which
     # row_plan's fault test reads) against the kernel's own formula
-    smem = cuda.lib("row_fft").gt_fs_smem
+    smem = cuda.lib("row_fft", fr.p.name).gt_fs_smem
     smem.restype = ctypes.c_longlong
     for G in range(1, fourstep.SMEM_LOG + 1):
         check(smem(G) == fourstep.seg_smem_bytes(G), f"K2 shared memory "
@@ -322,7 +372,8 @@ def phase_kernels(rng, res):
     # with the shared-memory cap lowered to 2^3 and 2^4 so that every row
     # runs global passes first
     err = 0
-    for k, cap in ((12, None), (13, None), (12, 3), (11, 4)):
+    for k, cap in ((12, None), (13, None), (12, 3), (11, 4)) if full else \
+            ((12, None), (11, 4)):
         n = 1 << k
         with fourstep_log(k), k2_cap(cap):
             dg = Domain(fr, n, DEV)
@@ -335,13 +386,13 @@ def phase_kernels(rng, res):
         check(launched == 4 * (2 + passes) and (cap is None) == (passes == 0),
               f"K2 four-step 2^{k} cap {cap}: {launched} launches for 4 "
               f"transforms with {passes} global passes")
-        log(f"K2 four-step 2^{k} (cap {cap or fourstep.SMEM_LOG}): fft/ifft/"
+        log(f"K2 four-step {cv} 2^{k} (cap {cap or fourstep.SMEM_LOG}): "
+            f"fft/ifft/"
             f"coset fft/coset ifft bit-exact, {launched // 4} launches a "
             f"transform ({passes} global passes)")
     res["fourstep_ntt"]["max_abs_err"] = err
 
     # K3 and K4 in G1 and G2
-    c = curves.CURVES["bn254"]
     err3 = {"proj_add": 0, "proj_double": 0}
     for g2 in (False, True):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
@@ -380,7 +431,7 @@ def phase_kernels(rng, res):
               f"K3 proj_double {tag}")
         err3["proj_double"] = max([err3["proj_double"]] +
                                   [max_abs(u, v) for u, v in zip(got, want)])
-        log(f"K3 proj_add/proj_double {tag}: ({n}, {A[0].shape[1]}) "
+        log(f"K3 proj_add/proj_double {cv} {tag}: ({n}, {A[0].shape[1]}) "
             f"bit-exact, host-checked; add "
             f"{cuda_ms(lambda: proj_add(ff, b3, A, B)):.4f} ms, double "
             f"{cuda_ms(lambda: proj_double(ff, b3, A)):.4f} ms")
@@ -399,7 +450,7 @@ def phase_kernels(rng, res):
         x, y = affine_words(ff, pts)
         sc = torch.as_tensor(fr.encode_words(ks, mont=False), device=DEV)
         for cc in sorted({8, C_MAIN}):
-            digits = bucket_digits(sc, 254, cc)
+            digits = bucket_digits(sc, nbits, cc, c.fp.name)
             got = bucket_msm(ff, b3, x, y, inf, digits, cc)
             want = bucket_msm_plain(ff, b3, x, y, inf, digits, cc)
             err = proj_err(ff, got, want)
@@ -412,27 +463,29 @@ def phase_kernels(rng, res):
             check(err == 0, f"K9 bucket_reduce {tag} c={cc} on K4's sums")
             res["bucket_reduce"]["max_abs_err"] = max(
                 res["bucket_reduce"]["max_abs_err"] or 0, err)
-            log(f"K4 bucket_msm {tag} c={cc}: ({n}, {x.shape[1]}) points, "
+            log(f"K4 bucket_msm {cv} {tag} c={cc}: ({n}, {x.shape[1]}) "
+                f"points, "
                 f"digits {tuple(digits.shape)}, equal as group elements; "
                 f"{cuda_ms(lambda: bucket_msm(ff, b3, x, y, inf, digits, cc)):.4f}"
                 f" ms; K9 on its {W << (cc - 1)} bucket sums equal as a group "
                 f"element")
-        k9_edges(ff, hf, b3, gen, base, rng, g2, res)
+        k9_edges(ff, hf, b3, gen, base, rng, g2, res, nbits)
     # the digit kernel of K4 against signed_digits at every width
     ks = [rng.randrange(c.fr.modulus) for _ in range(4093)] + \
         [0, 1, c.fr.modulus - 1]
     sc = torch.as_tensor(fr.encode_words(ks, mont=False), device=DEV)
     for cc in range(2, 17):
-        got = bucket_digits(sc, 254, cc)
-        want = signed_digits(scalar_limbs(sc), 254, cc)
-        check(torch.equal(got, want), f"K4 bucket_digits c={cc}")
+        got = bucket_digits(sc, nbits, cc, c.fp.name)
+        want = signed_digits(scalar_limbs(sc), nbits, cc)
+        check(torch.equal(got, want), f"K4 bucket_digits {cv} c={cc}")
     res["bucket_digits"]["max_abs_err"] = 0
-    log("K4 bucket_digits: (4096, 8) scalars at c = 2..16 bit-exact")
+    log(f"K4 bucket_digits {cv}: (4096, {fr.nw}) scalars of {nbits} bits "
+        f"at c = 2..16 bit-exact")
     for k, v in err3.items():
         res[k]["max_abs_err"] = v
 
 
-def k9_edges(ff, hf, b3, gen, base, rng, g2, res):
+def k9_edges(ff, hf, b3, gen, base, rng, g2, res, nbits):
     """K9 against its plain version as group elements: all buckets empty,
     one non-empty bucket per window (and the host's value), and at c = 8
     every bucket full with lazy X coordinates in [p, 2p) and equal
@@ -444,8 +497,12 @@ def k9_edges(ff, hf, b3, gen, base, rng, g2, res):
                                             bucket_reduce_plain,
                                             digit_count)
     tag = "G2" if g2 else "G1"
-    for cc in sorted({8, C_MAIN, 16}):
-        W, B = digit_count(254, cc), 1 << (cc - 1)
+    # the second curve's: c = 8 (C_MAIN is held on K4's sums already;
+    # the wider plain epilogues took ~30 s of the time limit)
+    widths = sorted({8, C_MAIN, 16} if ff.p.name.startswith("bn254") else
+                    {8})
+    for cc in widths:
+        W, B = digit_count(nbits, cc), 1 << (cc - 1)
         P = point_words(ff, hf, [host.INF], rng, g2, 0)
         P = tuple(a.expand(W * B, -1).contiguous() for a in P)
         R = bucket_reduce(ff, b3, P, W, cc)
@@ -476,8 +533,8 @@ def k9_edges(ff, hf, b3, gen, base, rng, g2, res):
     R = bucket_reduce(ff, b3, P, W, 8)
     err = proj_err(ff, R, bucket_reduce_plain(ff, b3, P, W, 8))
     check(err == 0, f"K9 {tag} c=8: full buckets, lazy inputs")
-    log(f"K9 bucket_reduce {tag}: empty buckets, one bucket a window (c = "
-        f"{sorted({8, C_MAIN, 16})}, host-checked), {W * B} full buckets "
+    log(f"K9 bucket_reduce {ff.p.name} {tag}: empty buckets, one bucket a "
+        f"window (c = {widths}, host-checked), {W * B} full buckets "
         f"with equal neighbours and X in [p, 2p): equal as group elements; "
         f"{cuda_ms(lambda: bucket_reduce(ff, b3, P, W, 8)):.4f} ms at c = 8")
 
@@ -571,7 +628,7 @@ def transforms_err(dg, dc, x, what):
     return err
 
 
-def phase_kernels_jac_ntt(rng, res):
+def phase_kernels_jac_ntt(rng, res, cv="bn254"):
     """K5: whole transforms at every n from 2^1 to 2^13, forward and
     inverse, on inputs in [p, 2p), its one-stage helper over every stage
     of 2^13, and the Domain's 2^13 transforms; K6, K7 and K8 over 2^12
@@ -589,7 +646,8 @@ def phase_kernels_jac_ntt(rng, res):
                                             ntt_launches, radix2_ntt,
                                             radix2_ntt_plain, stage_twiddles)
 
-    fr = get_ff("bn254_fr")
+    c = curves.CURVES[cv]
+    fr = get_ff(c.fr.name)
     q = fr.p.modulus
     err = 0
     for k in range(1, 14):
@@ -607,9 +665,9 @@ def phase_kernels_jac_ntt(rng, res):
             check(torch.equal(got, want), f"K5 radix2_ntt 2^{k}")
             err = max(err, max_abs(got, want))
     res["radix2_ntt"]["max_abs_err"] = err
-    log("K5 radix2_ntt: every n from 2^1 to 2^13, forward and inverse, a "
-        "third of the inputs in [p, 2p), bit-exact; one launch up to 2^10, "
-        "two above")
+    log(f"K5 radix2_ntt {cv}: every n from 2^1 to 2^13, forward and "
+        "inverse, a third of the inputs in [p, 2p), bit-exact; one launch "
+        "up to 2^10, two above")
     n = 1 << 13
     tws = stage_twiddles(fr, n, fr.p.root_of_unity(n))
     err = 0
@@ -628,7 +686,6 @@ def phase_kernels_jac_ntt(rng, res):
         f"inputs in [p, 2p)) bit-exact; 2^13 fft/ifft/coset fft/coset ifft "
         f"bit-exact")
 
-    c = curves.CURVES["bn254"]
     errs = {"jac_add_mixed": 0, "jac_double": 0, "jac_add": 0,
             "jac_fold": 0}
     for g2 in (False, True):
@@ -669,7 +726,7 @@ def phase_kernels_jac_ntt(rng, res):
                 check(jac_to_host(ff, hf, got, i) == want_host(i),
                       f"{name} {tag} vs host at {i}")
         log(f"K6 jac_add_mixed (per-row and broadcast operand) / K7 "
-            f"jac_double {tag}{' on lane pairs' if g2 else ''}: "
+            f"jac_double {cv} {tag}{' on lane pairs' if g2 else ''}: "
             f"({m}, {Pw[0].shape[1]}) bit-exact, host-checked")
 
         # K8: P + Q with P == Q (another Z), P == -Q, either or both at
@@ -691,7 +748,7 @@ def phase_kernels_jac_ntt(rng, res):
         for i in range(8):
             check(jac_to_host(ff, hf, got, i) == host.ec_add(hf, P[i], Q[i]),
                   f"jac_add {tag} vs host at {i}")
-        log(f"K8 jac_add {tag}{' on lane pairs' if g2 else ''}: "
+        log(f"K8 jac_add {cv} {tag}{' on lane pairs' if g2 else ''}: "
             f"({m}, {Pw[0].shape[1]}) bit-exact, host-checked; "
             f"{cuda_ms(lambda: jac_add(ff, Pw, Qw)):.4f} ms")
         errs["jac_fold"] = max(errs["jac_fold"],
@@ -751,9 +808,10 @@ def fold_check(ff, hf, base, rng, g2, W=3, G=16, B=131):
 LADDER_ROWS = 1024
 
 
-def phase_kernels_ladder(rng, res):
+def phase_kernels_ladder(rng, res, cv="bn254"):
     """The fused ladder against its plain version (the per-bit plain K7
-    + K6) at 254 bits on 1,029 scalars in G1 and G2, bit-exact: 0, 1,
+    + K6) at the scalar field's bits (254 on BN254, 255 on BLS12-381) on
+    1,029 scalars in G1 and G2, bit-exact: 0, 1,
     r - 1, r (the last add is P + (-P)) and r + 2 (P + P, the doubling
     branch), written as they are, then random ones; the edge rows
     against the host."""
@@ -761,13 +819,14 @@ def phase_kernels_ladder(rng, res):
     from gnark_tpu_torch.ec import curves, host
     from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ec.proj_ec import _lw
     from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
                                                 batch_scalar_mul_plain)
-    c = curves.CURVES["bn254"]
+    c = curves.CURVES[cv]
     r, nbits = c.fr.modulus, c.fr.bits
     ks = [0, 1, r - 1, r, r + 2] + [rng.randrange(r)
                                     for _ in range(LADDER_ROWS)]
-    sc = raw_words(ks)
+    sc = raw_words(ks, get_ff(c.fr.name).nw)
     err = 0
     for g2 in (False, True):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
@@ -780,29 +839,31 @@ def phase_kernels_ladder(rng, res):
         check(all(torch.equal(u, v) for u, v in zip(got, want)),
               f"ladder {'G2' if g2 else 'G1'}")
         err = max([err] + [max_abs(u, v) for u, v in zip(got, want)])
+        res["batch_scalar_mul"]["phase3_plain" + ("_g2" if g2 else "")] = \
+            (pms, [len(ks), _lw(ff), nbits])
         for i, k in enumerate(ks[:5]):
             check(jac_to_host(ff, hf, got, i) == host.ec_mul(hf, gen, k % r),
                   f"ladder {'G2' if g2 else 'G1'} vs host at scalar {i}")
-        log(f"ladder {'G2 on lane pairs' if g2 else 'G1'}: {len(ks)} "
+        log(f"ladder {cv} {'G2 on lane pairs' if g2 else 'G1'}: {len(ks)} "
             f"scalars at {nbits} bits (0, 1, r - 1, r, r + 2, random) "
             f"bit-exact against the per-bit plain K7 + K6 "
             f"({pms:.1f} ms), host-checked")
     res["batch_scalar_mul"]["max_abs_err"] = err
 
 
-def lazy_rows(words, q):
-    """Each 8-word element of the rows plus p: canonical -> [p, 2p)."""
+def lazy_rows(words, q, nw=8):
+    """Each nw-word element of the rows plus p: canonical -> [p, 2p)."""
     import numpy as np
     arr = np.ascontiguousarray(words.cpu().numpy().astype("<i4"))
     vals = [int.from_bytes(r.tobytes(), "little") + q
-            for r in arr.reshape(-1, 8)]
-    return raw_words(vals).reshape(words.shape)
+            for r in arr.reshape(-1, nw)]
+    return raw_words(vals, nw).reshape(words.shape)
 
 
 AFFINE_TILE = 1024
 
 
-def phase_kernels_affine(rng, res):
+def phase_kernels_affine(rng, res, cv="bn254"):
     """K1's affine kernel (affine_words) against its plain version, the
     Fermat chain of plain products, on 1,024 G1 and G2 Jacobian points
     from the host: infinity (Z = 0), Z = 1, Z in [p, 2p) (and X in [p,
@@ -814,8 +875,9 @@ def phase_kernels_affine(rng, res):
     from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm import fixed_base
-    c = curves.CURVES["bn254"]
+    c = curves.CURVES[cv]
     q = c.fp.modulus
+    nw = get_ff(c.fp.name).nw
     err = 0
     for g2 in (False, True):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
@@ -833,7 +895,7 @@ def phase_kernels_affine(rng, res):
         X[1], Y[1] = x1[0], y1[0]
         Z[1] = torch.as_tensor(ff.encode_words([(1, 0) if g2 else 1]),
                                device=DEV).reshape(-1)
-        Z[2:200] = lazy_rows(Z[2:200], q)                   # Z in [p, 2p)
+        Z[2:200] = lazy_rows(Z[2:200], q, nw)               # Z in [p, 2p)
         P = (X, Y, Z)
         got = fixed_base.affine_words(ff, P)
         want = fixed_base.affine_words_plain(ff, P)
@@ -841,7 +903,7 @@ def phase_kernels_affine(rng, res):
               f"K1 affine_words {tag}")
         err = max([err] + [max_abs(u, v) for u, v in zip(got, want)])
         idx = [0, 1, 2, 3, 7, 200, 201]
-        shp = (-1, 2, 8) if g2 else (-1, 8)
+        shp = (-1, 2, nw) if g2 else (-1, nw)
         inf = torch.tensor([pts[i] is host.INF for i in idx])
         check(_host_points(ff, *(a[idx].reshape(shp) for a in got), inf) ==
               [pts[i] for i in idx], f"K1 affine_words {tag} vs host")
@@ -855,7 +917,7 @@ def phase_kernels_affine(rng, res):
         check(all(torch.equal(u, v.repeat(AFFINE_TILE, 1))
                   for u, v in zip(big, got)),
               f"K1 affine_words {tag}: the tiled batch differs")
-        log(f"K1 affine_words {tag}: ({m}, {X.shape[1]}) Jacobian points "
+        log(f"K1 affine_words {cv} {tag}: ({m}, {X.shape[1]}) Jacobian points "
             f"(infinity, Z = 1, Z in [p, 2p), random Z) bit-exact against "
             f"the plain Fermat chain, host-checked; the same words tiled "
             f"to {m * AFFINE_TILE} points")
@@ -918,19 +980,13 @@ def affine_words(ff, pts):
 
 def phase_main(res):
     from gnark_tpu_torch import native
-    from gnark_tpu_torch.backend import groth16
     from gnark_tpu_torch.backend.groth16_check import (CheckError,
                                                        check_prove,
                                                        known_log_key,
                                                        synth_square_chain)
     from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
     from gnark_tpu_torch.ff import get_ff
-    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
-    from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
-                                            bucket_reduce)
     from gnark_tpu_torch.ntt import get_domain
-    from gnark_tpu_torch.ntt.fourstep import fourstep_ntt, row_fft
 
     t = time.perf_counter()
     cs = synth_square_chain(N_CHAINS, CHAIN_LEN)
@@ -949,6 +1005,32 @@ def phase_main(res):
     log(f"main path: domain tables and solver load in "
         f"{time.perf_counter() - t:.2f} s")
 
+    proofs = three_proves(res, cs, pk, "g16_20")
+    t = time.perf_counter()
+    try:
+        check_prove(cs, pk, [], [j + 2 for j in range(N_CHAINS)],
+                    random.Random(7))
+    except CheckError as e:
+        raise Fail(str(e))
+    log("main path: the five MSMs equal their known-log values and "
+        "A(tau)B(tau) - C(tau) == H(tau)(tau^N - 1) "
+        f"(checked in {time.perf_counter() - t:.1f} s)")
+    return pk.g1_a[0].shape[0], cs, pk, proofs[0]
+
+
+def three_proves(res, cs, pk, what):
+    """Three Groth16 proves of the squaring chain with every launch count
+    set to 0 first: each MSM runs the digit kernel, K4 and K9 once and
+    K3 not at all, each computeH one mont_mul_sub_mul, 14 K2 launches
+    (seven transforms, the scalings and the mid twiddle inside) and 4 K1
+    (three to Montgomery form, one out of it), no row_fft. Returns the
+    proofs."""
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.ec.proj_ec import proj_add, proj_double
+    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
+    from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
+                                            bucket_reduce)
+    from gnark_tpu_torch.ntt.fourstep import fourstep_ntt, row_fft
     wrappers = (mont_mul, mont_mul_sub_mul, fourstep_ntt, row_fft, proj_add,
                 proj_double, bucket_digits, bucket_msm, bucket_reduce)
     for wr in wrappers:
@@ -962,75 +1044,32 @@ def phase_main(res):
                               timings=tm)
         tm["total"] = time.perf_counter() - t
         check(None not in (proof.ar, proof.krs, proof.bs),
-              "prove returned an identity point")
+              f"{what}: prove returned an identity point")
         proofs.append(proof)
-        log("prove %d (s): %s" % (i, json.dumps(
-            {k: round(v, 4) for k, v in tm.items()})))
+        log(f"{what} prove {i} (s): {fmt_times(tm)}")
     launches = {wr.__name__: wr.launches for wr in wrappers}
-    log("launches during 3 proves: " + json.dumps(launches))
+    log(f"launches during 3 {what} proves: " + json.dumps(launches))
     for k, v in launches.items():
         res[k]["launches"] = v
         if k in ("proj_add", "proj_double"):
-            check(v == 0, f"K3 {k} was launched {v} times on the main path "
-                  f"(the epilogue is K9's)")
+            check(v == 0, f"{what}: K3 {k} was launched {v} times on the "
+                  f"main path (the epilogue is K9's)")
         elif k == "row_fft":
-            check(v == 0, f"row_fft was launched {v} times on the main path "
-                  f"(its transforms are fourstep_ntt's)")
+            check(v == 0, f"{what}: row_fft was launched {v} times on the "
+                  f"main path (its transforms are fourstep_ntt's)")
         else:
-            check(v > 0, f"kernel {k} was not launched on the main path")
+            check(v > 0, f"{what}: kernel {k} was not launched on the main "
+                  f"path")
     for k in ("bucket_digits", "bucket_msm", "bucket_reduce"):
-        check(launches[k] == 3 * 5, f"{k} launched {launches[k]} times in "
-              f"3 proves, not once for each of the 5 MSMs")
-    check(launches["mont_mul_sub_mul"] == 3, "mont_mul_sub_mul launched "
-          f"{launches['mont_mul_sub_mul']} times in 3 proves, not once each")
-    # seven transforms a computeH, two K2 launches each, the scalings and
-    # the mid twiddle inside them; K1 only for the three to-Montgomery
-    # products and the one from Montgomery form
+        check(launches[k] == 3 * 5, f"{what}: {k} launched {launches[k]} "
+              f"times in 3 proves, not once for each of the 5 MSMs")
+    check(launches["mont_mul_sub_mul"] == 3, f"{what}: mont_mul_sub_mul "
+          f"launched {launches['mont_mul_sub_mul']} times in 3 proves, not "
+          f"once each")
     check(launches["fourstep_ntt"] == 3 * 14 and launches["mont_mul"] == 3 * 4,
-          f"3 proves launched K2 {launches['fourstep_ntt']} times (not 42) "
-          f"and K1 {launches['mont_mul']} times (not 12)")
-    t = time.perf_counter()
-    try:
-        check_prove(cs, pk, [], [j + 2 for j in range(N_CHAINS)],
-                    random.Random(7))
-    except CheckError as e:
-        raise Fail(str(e))
-    log("main path: the five MSMs equal their known-log values and "
-        "A(tau)B(tau) - C(tau) == H(tau)(tau^N - 1) "
-        f"(checked in {time.perf_counter() - t:.1f} s)")
-    return pk.g1_a[0].shape[0], cs, pk, proofs[0]
-
-
-def phase_scan(res, cs, pk, want):
-    """Prove 0 of phase 4 again with every MSM on the scan path: the same
-    proof under the same rng, and the five MSMs equal their known-log
-    values."""
-    from gnark_tpu_torch.backend import groth16
-    from gnark_tpu_torch.backend.groth16_check import CheckError, check_prove
-    tm = {}
-    sec = [j + 2 for j in range(N_CHAINS)]
-
-    def run():
-        t = time.perf_counter()
-        proof = groth16.prove(cs, pk, [], sec, rng=random.Random(100),
-                              timings=tm)
-        tm["total"] = time.perf_counter() - t
-        return proof
-    proof, launches = scan_prove("g16_20", run)
-    log(f"g16_20 scan-path prove (s): {fmt_times(tm)}")
-    check(proof == want, "g16_20: the scan-path proof differs from the "
-          "bucket-path proof under the same rng")
-    for k in ("jac_add", "jac_add_mixed", "jac_double", "jac_fold"):
-        res[k]["launches"] = launches[k]
-    log("g16_20 scan-path proof == bucket-path proof")
-    t = time.perf_counter()
-    try:
-        with scan_msm():
-            check_prove(cs, pk, [], sec, random.Random(8))
-    except CheckError as e:
-        raise Fail("scan path: " + str(e))
-    log("g16_20 scan path: the five MSMs equal their known-log values "
-        f"(checked in {time.perf_counter() - t:.1f} s)")
+          f"{what}: 3 proves launched K2 {launches['fourstep_ntt']} times "
+          f"(not 42) and K1 {launches['mont_mul']} times (not 12)")
+    return proofs
 
 
 # ---------------------------------------------------------------------------
@@ -1041,10 +1080,10 @@ def fmt_times(tm):
     return json.dumps({k: round(v, 4) for k, v in tm.items()})
 
 
-def timed_setup(cs, what):
-    """groth16.setup on the card, timed by phase; the ladder kernel and
-    K1's affine kernel must launch once for each of the two groups, and
-    K6, K7 and K1's product not at all."""
+def timed_setup(cs, what, cv="bn254"):
+    """groth16.setup over curve cv on the card, timed by phase; the
+    ladder kernel and K1's affine kernel must launch once for each of
+    the two groups, and K6, K7 and K1's product not at all."""
     from gnark_tpu_torch.backend import groth16
     from gnark_tpu_torch.ec.jac_ec import jac_add_mixed, jac_double
     from gnark_tpu_torch.ff.mont_mul import mont_mul
@@ -1055,7 +1094,7 @@ def timed_setup(cs, what):
         wr.launches = 0
     tm = {}
     t = time.perf_counter()
-    pk, vk = groth16.setup(cs, "bn254", rng=random.Random(SETUP_SEED),
+    pk, vk = groth16.setup(cs, cv, rng=random.Random(SETUP_SEED),
                            timings=tm)
     tm["total"] = time.perf_counter() - t
     launches = {wr.__name__: wr.launches for wr in wrappers}
@@ -1147,9 +1186,72 @@ def phase_setup(res, cs, rng):
     return ladder_sc, (pk.g1_a, pk.g2_b)
 
 
+def phase_g16_2(res, rng, cv=CURVE2):
+    """g16_381_20: bench.py's g16_20 squaring chain (2^20 constraints)
+    over the second curve's scalar field: setup on the card (one ladder
+    and one affine_words launch a group), 64 sampled points of each key
+    column against host scalar multiplications, three proves (each MSM
+    the digit kernel, K4 and K9 once, K3 none; 14 K2 and 4 K1 launches
+    and one mont_mul_sub_mul a prove), the first's five MSMs against
+    their values from the setup's scalars and H by Schwartz-Zippel,
+    verify, and a proof with Ar and Krs of two proves refused. Returns
+    the setup's G1 and G2 scalars as words (phase 6's ladder) and the
+    key's A and B columns (phase 6's K4 and K9)."""
+    import torch
+    from gnark_tpu_torch.backend import groth16
+    from gnark_tpu_torch.backend.groth16_check import (
+        CheckError, check_prove, setup_logs, synth_square_chain)
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ntt import get_domain
+    what = "g16_381_20"
+    curve = curves.CURVES[cv]
+    t = time.perf_counter()
+    cs = synth_square_chain(N_CHAINS, CHAIN_LEN, curve.fr)
+    log(f"{what}: circuit {cs.summary()} built in "
+        f"{time.perf_counter() - t:.2f} s")
+    pk, vk, launches = timed_setup(cs, what, cv)
+    check(pk.domain_n == 1 << 20, f"{what}: N = {pk.domain_n}, not 2^20")
+    for k in ("batch_scalar_mul", "affine_words"):
+        res[k]["launches"] = launches[k]
+    t = time.perf_counter()
+    s = check_key(cs, pk, vk, rng, k=24)   # BLS12-381's host products
+    log(f"{what} key: 24 sampled points of each of the five columns, the "
+        f"five host points and the vk equal [s] G for the recomputed "
+        f"scalars (checked in {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    get_domain(get_ff(curve.fr.name), pk.domain_n, DEV)  # its K1 tables
+    sync()
+    log(f"{what}: domain tables in {time.perf_counter() - t:.2f} s")
+    proofs = three_proves(res, cs, pk, what)
+    t = time.perf_counter()
+    try:
+        check_prove(cs, pk, [], [j + 2 for j in range(N_CHAINS)],
+                    random.Random(7), logs=setup_logs(cs, s))
+    except CheckError as e:
+        raise Fail(f"{what}: {e}")
+    log(f"{what}: the five MSMs equal their values from the setup's "
+        f"scalars and A(tau)B(tau) - C(tau) == H(tau)(tau^N - 1) (checked "
+        f"in {time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    check(groth16.verify(proofs[0], vk, []), f"{what}: verify rejected a "
+          f"proof")
+    log(f"{what} verify: True in {time.perf_counter() - t:.3f} s")
+    bad = groth16.Proof(ar=proofs[0].ar, krs=proofs[1].krs, bs=proofs[0].bs)
+    check(not groth16.verify(bad, vk, []),
+          f"{what}: verify accepted Ar and Krs of two proofs")
+    log(f"{what} verify of Ar from one proof and Krs from another: False")
+    fr = get_ff(curve.fr.name)
+    ladder_sc = tuple(torch.as_tensor(fr.encode_words(s[g], mont=False),
+                                      device=DEV) for g in ("g1", "g2"))
+    return ladder_sc, (pk.g1_a, pk.g2_b), pk.g1_a[0].shape[0]
+
+
 def phase_merkle(res):
     """merkle_d12: the Merkle membership example at depth 12 (N = 2^13,
-    the radix-2 plan): setup, three proves, verify; a wrong root fails."""
+    the radix-2 plan): setup, three proves, the third again on the scan
+    path (the same proof; K6, jac_fold, K8 and K7 must launch, K4 and K9
+    must not), verify; a wrong root fails."""
     from gnark_tpu_torch import fields
     from gnark_tpu_torch.backend import groth16
     from gnark_tpu_torch.backend.groth16_check import (Membership,
@@ -1195,6 +1297,21 @@ def phase_merkle(res):
           f"merkle_d12: {radix2_ntt.launches} K5 launches for {calls[0]} "
           f"transforms, more than two a transform")
     res["radix2_ntt"]["launches"] = launches["radix2_ntt"]
+    tm = {}
+
+    def run():
+        t = time.perf_counter()
+        out = groth16.prove(cs, pk, pub, sec, rng=random.Random(22),
+                            timings=tm)
+        tm["total"] = time.perf_counter() - t
+        return out
+    proof_s, launches = scan_prove("merkle_d12", run)
+    log(f"merkle_d12 scan-path prove (s): {fmt_times(tm)}")
+    check(proof_s == proof, "merkle_d12: the scan-path proof differs from "
+          "the bucket-path proof under the same rng")
+    for k in ("jac_add", "jac_add_mixed", "jac_double", "jac_fold"):
+        res[k]["launches"] = launches[k]
+    log("merkle_d12 scan-path proof == bucket-path proof")
     t = time.perf_counter()
     check(groth16.verify(proof, vk, pub), "merkle_d12: verify rejected")
     log(f"merkle_d12 verify: True in {time.perf_counter() - t:.3f} s")
@@ -1206,9 +1323,11 @@ def phase_merkle(res):
 
 def phase_rc20(res):
     """rc_20: 2^17 secret 64-bit values range-checked through
-    std/rangecheck (one BSB22 commitment): setup, two proves and one on
-    the scan path under the same rng as the second (the same proof),
-    verify; a proof with its commitment and PoK swapped, and one with a
+    std/rangecheck (one BSB22 commitment): setup, a prove, verify (a
+    second prove and the scan path, whose kernels g16_20's scan-path
+    prove holds, are not run again here: they took ~55-65 s of the
+    smoke's time limit); a proof with its commitment and PoK swapped,
+    and one with a
     tampered PoK, do not verify."""
     from gnark_tpu_torch import fields
     from gnark_tpu_torch.backend import groth16
@@ -1227,29 +1346,12 @@ def phase_rc20(res):
         f"{time.perf_counter() - t1:.2f} s")
     pk, vk, _ = timed_setup(cs, "rc_20")
     check(pk.domain_n == 1 << 20, f"rc_20: N = {pk.domain_n}, not 2^20")
-    proofs = []
-    for i in range(2):
-        tm = {}
-        t = time.perf_counter()
-        proofs.append(groth16.prove(cs, pk, pub, sec,
-                                    rng=random.Random(30 + i), timings=tm))
-        tm["total"] = time.perf_counter() - t
-        log(f"rc_20 prove {i} (s): {fmt_times(tm)}")
     tm = {}
-
-    def run():
-        t = time.perf_counter()
-        proof = groth16.prove(cs, pk, pub, sec, rng=random.Random(31),
-                              timings=tm)
-        tm["total"] = time.perf_counter() - t
-        return proof
-    proof_s, _ = scan_prove("rc_20", run)
-    log(f"rc_20 scan-path prove (s): {fmt_times(tm)}")
-    proof = proofs[1]
-    check(proof_s == proof, "rc_20: the scan-path proof differs from the "
-          "bucket-path proof under the same rng")
-    log("rc_20 scan-path proof == bucket-path proof (commitment and PoK "
-        "included)")
+    t = time.perf_counter()
+    proof = groth16.prove(cs, pk, pub, sec, rng=random.Random(31),
+                          timings=tm)
+    tm["total"] = time.perf_counter() - t
+    log(f"rc_20 prove (s): {fmt_times(tm)}")
     t = time.perf_counter()
     check(groth16.verify(proof, vk, pub), "rc_20: verify rejected a proof")
     log(f"rc_20 verify: True in {time.perf_counter() - t:.3f} s")
@@ -1300,16 +1402,43 @@ def make_put(res, rate):
     return put
 
 
-def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
-    """Each kernel at the shapes its path gives it (a domain of n; for K4
-    and K9 the g16_20 setup key's A (G1) and B (G2) columns, 2^20 + 2049
-    distinct points, with random scalars, at the main path's width and at
-    c = 8, the grouping and the two passes also timed apart; a stage of
-    2^13 for K5, the G1 and G2 setup ladders' widths for K6 and K7, the
-    g16_20 setup's scalars for the ladder, the scan path's widest
-    group-fold step for K8): timed, and held against its plain version
-    on the same inputs (the ladder also against the per-bit K7 + K6
-    sequence on the card); a disagreement fails the run."""
+def phase_times(res, rng, n_pts, ladder_sc, key_cols, cv="bn254",
+                n=1 << 20):
+    """Each kernel of curve cv's builds at the shapes its path gives it
+    (a domain of n; for K4 and K9 the g16_20 / g16_381_20 setup key's A
+    (G1) and B (G2) columns, 2^20 + 2049 distinct points, with random
+    scalars, at the main path's width, the grouping and the two passes
+    also timed apart; a stage of 2^13 for K5, the G1 and G2 setup
+    ladders' widths for K6 and K7, that setup's scalars for the ladder,
+    the scan path's widest group-fold step for K8, K10-K14 at 2^20):
+    timed, and held against its plain version on the same inputs (the
+    ladder also against the per-bit K7 + K6 sequence on the card); a
+    disagreement fails the run. BN254 also checks a 2^25 domain's round
+    trip."""
+    import torch
+    rate = int_mul_rate()
+    put = make_put(res, rate)
+    times_k1_k3(put, rng, n, cv)
+    times_k4_k9(res, rate, put, key_cols, cv)
+    sweep_widths(key_cols, cv)
+
+    times_k5(res, put, rng, cv)
+    times_computeh(res, put, rng, n, cv)
+    if cv == "bn254":
+        round_trip(1 << 25, rng)
+
+    times_k6_k7(put, ladder_sc, cv)
+    times_ladder(res, rate, put, ladder_sc, plain_rows=0, cv=cv)
+    torch.cuda.empty_cache()
+
+    times_k8(put, n_pts, cv)
+    times_ff_ops(res, put, rng, n, cv)
+
+
+def times_k1_k3(put, rng, n, cv="bn254"):
+    """K1 and K2's row kernel at a domain of n, the whole four-step
+    transform (times_fourstep), and K3 at the shapes of the bucket
+    epilogue that K9 replaced."""
     import torch
     from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
@@ -1320,10 +1449,9 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
     from gnark_tpu_torch.ntt.fourstep import (root_powers, row_fft,
                                               row_fft_plain, row_plan,
                                               seg_table)
-    rate = int_mul_rate()
-    put = make_put(res, rate)
-    fr = get_ff("bn254_fr")
-    c = curves.CURVES["bn254"]
+    c = curves.CURVES[cv]
+    fr = get_ff(c.fr.name)
+    res = put.res
 
     a, b = rand_words(fr, n, rng), rand_words(fr, n, rng)
     ms, got = timed(lambda: mont_mul(fr, a, b))
@@ -1342,11 +1470,12 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
         2 * n * 32 + pw.numel() * 4,
         n // 2 * (S.bit_length() - 1) * MUL_OPS["mul"], max_abs(got, want))
     del x, got, want
-    times_fourstep(res, put, rng, n)
+    times_fourstep(res, put, rng, n, cv)
     # K3 at the shapes of the bucket epilogue that K9 replaced on the main
     # path (its widest suffix-sum step at c = 8, W * B/2 pairs, and its
     # one-point Horner adds and doubles)
-    fp = get_ff("bn254_fp")
+    fp = get_ff(c.fp.name)
+    ops = mul_ops(fp.nw)
     b3 = curve_b3(c.fp.name)
     wide = 32 * 128 // 2
     for name, sfx, w, fn, pfn, k, nin in (
@@ -1358,24 +1487,11 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, n=1 << 20):
         args = (P[:3], P[3:]) if nin == 6 else (P,)
         ms, got = timed(lambda: fn(fp, b3, *args))
         pms, want = timed(lambda: pfn(fp, b3, *args), 3)
-        put(name, sfx, [w, 8], ms, pms, (nin + 3) * w * 32, w * MUL_OPS[k],
-            max(max_abs(u, v) for u, v in zip(got, want)))
-    times_k4_k9(res, rate, put, key_cols)
-    sweep_widths(key_cols)
-
-    times_k5(res, put, rng)
-    times_computeh(res, put, rng, n)
-    round_trip(1 << 25, rng)
-
-    times_k6_k7(put, ladder_sc)
-    times_ladder(res, rate, put, ladder_sc)
-    torch.cuda.empty_cache()
-
-    times_k8(put, n_pts)
-    times_ff_ops(res, put, rng)
+        put(name, sfx, [w, fp.nw], ms, pms, (nin + 3) * w * 4 * fp.nw,
+            w * ops[k], max(max_abs(u, v) for u, v in zip(got, want)))
 
 
-def times_k8(put, n_pts):
+def times_k8(put, n_pts, cv="bn254"):
     """K8 at the scan path's widest shape before the group fold became
     one launch (the first halving step of a wire MSM's fold: W * G/2 *
     2^c rows for n_pts points; now the widest K8 step is a suffix
@@ -1387,7 +1503,10 @@ def times_k8(put, n_pts):
     from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_plain
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm.pippenger import _pick_params
-    c = curves.CURVES["bn254"]
+    from gnark_tpu_torch.ec.proj_ec import _lw
+    c = curves.CURVES[cv]
+    nw = get_ff(c.fp.name).nw
+    ops = mul_ops(nw)
     gen_t = torch.Generator(device=DEV).manual_seed(5)
     n_class = 1 << (n_pts - 1).bit_length()
     cc, G = _pick_params(n_class, c.fr.bits)
@@ -1395,8 +1514,8 @@ def times_k8(put, n_pts):
     wide = W * (G // 2) << cc
     for g2 in (False, True):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
-        Lw = 16 if g2 else 8
-        P = tuple(rand_dev_words(wide, Lw, gen_t) for _ in range(6))
+        Lw = _lw(ff)
+        P = tuple(rand_dev_words(wide, Lw, gen_t, nw) for _ in range(6))
         pn = 1 << 16
         sl_ = tuple(a[:pn] for a in P)
         op, sfx = ("2", "_g2") if g2 else ("", "")
@@ -1405,15 +1524,17 @@ def times_k8(put, n_pts):
                           warm=False)
         got = jac_add(ff, sl_[:3], sl_[3:])
         put("jac_add", sfx, [wide, Lw], ms, pms, wide * 9 * Lw * 4,
-            wide * MUL_OPS["jac_add" + op],
+            wide * ops["jac_add" + op],
             max(max_abs(u, v) for u, v in zip(got, want)),
             plain_shape=[min(pn, wide), Lw])
         del P, sl_, got, want
         torch.cuda.empty_cache()
-        times_fold(put, ff, Lw, op, sfx, W, G, 1 << cc, gen_t)
+        times_fold(put, ff, Lw, op, sfx, W, G, 1 << cc, gen_t, ops=ops,
+                   nw=nw)
 
 
-def times_fold(put, ff, Lw, op, sfx, W, G, B, gen_t, plain_cols=1024):
+def times_fold(put, ff, Lw, op, sfx, W, G, B, gen_t, plain_cols=1024,
+               ops=MUL_OPS, nw=8):
     """jac_fold at a wire MSM's fold (W windows, G groups, B buckets, W *
     G * B rows in, W * B out) on random words, timed beside the halving
     tree of K8 that it replaced (log2 G launches and a stack of the
@@ -1425,7 +1546,7 @@ def times_fold(put, ff, Lw, op, sfx, W, G, B, gen_t, plain_cols=1024):
     import torch
     from gnark_tpu_torch.ec.jac_ec import jac_add, jac_fold, jac_fold_plain
     N = W * G * B
-    P = tuple(rand_dev_words(N, Lw, gen_t) for _ in range(3))
+    P = tuple(rand_dev_words(N, Lw, gen_t, nw) for _ in range(3))
     ms, got = timed(lambda: jac_fold(ff, P, G, B), 3)
 
     def tree():
@@ -1445,18 +1566,19 @@ def times_fold(put, ff, Lw, op, sfx, W, G, B, gen_t, plain_cols=1024):
                       warm=False)
     got = jac_fold(ff, sl_, G, plain_cols)
     put("jac_fold", sfx, [N, Lw, G], ms, pms, (N + W * B) * 3 * Lw * 4,
-        (G - 1) * W * B * MUL_OPS["jac_add" + op],
+        (G - 1) * W * B * ops["jac_add" + op],
         max(max_abs(u, v) for u, v in zip(got, want)),
         plain_shape=[G * plain_cols, Lw, G])
     res_fold = put.res["jac_fold"]
     res_fold["tree_ms" + sfx] = tree_ms
-    log(f"jac_fold{sfx} at W = {W}, G = {G}, B = {B}: {ms:.3f} ms; the "
+    log(f"jac_fold {ff.p.name}{sfx} at W = {W}, G = {G}, B = {B}: "
+        f"{ms:.3f} ms; the "
         f"halving tree of K8 it replaced {tree_ms:.3f} ms")
     del P, sl_, got, want
     torch.cuda.empty_cache()
 
 
-def times_fourstep(res, put, rng, n):
+def times_fourstep(res, put, rng, n, cv="bn254"):
     """A whole 2^n transform (fourstep_ntt, two launches with the
     scalings and the mid twiddle inside) against its plain twin and
     against the sequence of launches it replaced, run here on the same
@@ -1474,7 +1596,7 @@ def times_fourstep(res, put, rng, n):
     from gnark_tpu_torch.ntt import get_domain
     from gnark_tpu_torch.ntt.fourstep import (bitrev, fourstep_ntt,
                                               fourstep_ntt_plain, row_fft)
-    fr = get_ff("bn254_fr")
+    fr = get_ff(f"{cv}_fr")
     dom = get_domain(fr, n, DEV)
     x = rand_words(fr, n, rng)
     for inv, sfx in ((False, ""), (True, "_ifft")):
@@ -1514,7 +1636,7 @@ def times_fourstep(res, put, rng, n):
         res["fourstep_ntt"].update({"sequence_ms" + sfx: seq_ms,
                                     "bound_ms_fourstep" + sfx: b,
                                     "bound_by_fourstep" + sfx: by})
-        log(f"fourstep_ntt {'iFFT' if inv else 'coset FFT'} 2^"
+        log(f"fourstep_ntt {cv} {'iFFT' if inv else 'coset FFT'} 2^"
             f"{n.bit_length() - 1}: {ms:.4f} ms in 2 launches (four-step "
             f"bound {b:.4f} ms, {by}); the row_fft + K1 + transposes + "
             f"gathers sequence it replaced, on the current row kernel, "
@@ -1557,7 +1679,7 @@ def round_trip(n, rng):
     torch.cuda.empty_cache()
 
 
-def times_k5(res, put, rng):
+def times_k5(res, put, rng, cv="bn254"):
     """One whole K5 transform of merkle_d12's 2^13 domain against its
     plain version, and against the sequence it replaced (the gather and
     13 one-stage launches), timed beside it."""
@@ -1567,7 +1689,7 @@ def times_k5(res, put, rng):
     from gnark_tpu_torch.ntt.fourstep import bitrev
     from gnark_tpu_torch.ntt.radix2 import (butterfly, radix2_ntt,
                                             radix2_ntt_plain, stage_twiddles)
-    fr = get_ff("bn254_fr")
+    fr = get_ff(f"{cv}_fr")
     m = 1 << 13
     x = rand_words(fr, m, rng)
     tw = torch.as_tensor(np.concatenate(stage_twiddles(
@@ -1587,12 +1709,12 @@ def times_k5(res, put, rng):
     res["radix2_ntt"]["per_stage_ms"], want = timed(per_stage)
     check(torch.equal(got, want), "radix2_ntt differs from the per-stage "
           "K5 sequence")
-    log(f"radix2_ntt 2^13: {ms:.4f} ms; the gather and 13 one-stage "
+    log(f"radix2_ntt {cv} 2^13: {ms:.4f} ms; the gather and 13 one-stage "
         f"launches it replaced {res['radix2_ntt']['per_stage_ms']:.4f} ms, "
         f"the same words")
 
 
-def times_computeh(res, put, rng, n):
+def times_computeh(res, put, rng, n, cv="bn254"):
     """computeH of a 2^n-point prove, part by part, on random inputs: an
     iFFT, a coset FFT, the pointwise (a*b - c)*den as the fused
     mont_mul_sub_mul (timed against its plain version and its bound),
@@ -1604,7 +1726,7 @@ def times_computeh(res, put, rng, n):
     from gnark_tpu_torch.ff.mont_mul import (mont_mul, mont_mul_sub_mul,
                                              mont_mul_sub_mul_plain)
     from gnark_tpu_torch.ntt import get_domain
-    fr = get_ff("bn254_fr")
+    fr = get_ff(f"{cv}_fr")
     dom = get_domain(fr, n, DEV)
     a, b, c = (rand_words(fr, n, rng) for _ in range(3))
     d = rand_words(fr, 1, rng)
@@ -1625,12 +1747,12 @@ def times_computeh(res, put, rng, n):
     parts["computeH"] = 3 * (parts["ifft"] + parts["coset_fft"]) + \
         parts["pointwise"] + parts["coset_ifft"] + parts["from_mont"]
     res["mont_mul_sub_mul"]["computeH_parts_ms"] = parts
-    log(f"computeH at 2^{n.bit_length() - 1}, ms by part (CUDA events; "
+    log(f"computeH {cv} at 2^{n.bit_length() - 1}, ms by part (CUDA events; "
         f"computeH = 3 (ifft + coset_fft) + pointwise + coset_ifft + "
         f"from_mont): {json.dumps(parts)}")
 
 
-def times_k6_k7(put, ladder_sc):
+def times_k6_k7(put, ladder_sc, cv="bn254"):
     """K6 and K7 at the g16_20 setup ladders' widths on random words;
     the plain versions on the first 2^16 points, against the kernels on
     the same slice."""
@@ -1641,13 +1763,16 @@ def times_k6_k7(put, ladder_sc):
                                            jac_add_mixed_plain, jac_double,
                                            jac_double_plain)
     from gnark_tpu_torch.ff import get_ff
-    c = curves.CURVES["bn254"]
+    from gnark_tpu_torch.ec.proj_ec import _lw
+    c = curves.CURVES[cv]
+    nw = get_ff(c.fp.name).nw
+    ops = mul_ops(nw)
     gen_t = torch.Generator(device=DEV).manual_seed(5)
     for g2, sc in ((False, ladder_sc[0]), (True, ladder_sc[1])):
         npts = sc.shape[0]
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
-        Lw = 16 if g2 else 8
-        P = tuple(rand_dev_words(npts, Lw, gen_t) for _ in range(3))
+        Lw = _lw(ff)
+        P = tuple(rand_dev_words(npts, Lw, gen_t, nw) for _ in range(3))
         bx, by = affine_words(ff, [c.g2 if g2 else c.g1])
         mask = torch.rand(npts, device=DEV, generator=gen_t) < 0.5
         pn = 1 << 16
@@ -1665,7 +1790,7 @@ def times_k6_k7(put, ladder_sc):
                               warm=False)
             got = fn(ff, sl_, *args[:2], *a_sl)
             put(name, sfx, [npts, Lw], ms, pms, nbytes,
-                npts * MUL_OPS[k + op],
+                npts * ops[k + op],
                 max(max_abs(u, v) for u, v in zip(got, want)),
                 plain_shape=[min(pn, npts), Lw])
         del P, sl_, got, want
@@ -1703,12 +1828,15 @@ def ladder_work(sc, nbits, w):
             int((digits.sum(1) - 1).clamp(min=0).sum()))
 
 
-def times_ladder(res, rate, put, ladder_sc, plain_rows=1024):
+def times_ladder(res, rate, put, ladder_sc, plain_rows=1024, cv="bn254"):
     """The ladder on the g16_20 setup's G1 and G2 scalars, held bit-exact
     against its plain version on the first plain_rows of them (whose
-    time is the plain time) and against the per-bit K7 + K6 sequence it
-    fuses on all of them (timed beside it). Bound: the least work of the
-    function, a fixed-base [s] B of which Setup keeps the affine point: a
+    time is the plain time; plain_rows 0: the plain version's time on
+    phase 3's scalars, already held bit-exact there, whose plain ladder
+    is dispatch-bound and takes as long at any width) and against the
+    per-bit K7 + K6 sequence it fuses on all of them (timed beside it).
+    Bound: the least work of the function, a fixed-base [s] B of which
+    Setup keeps the affine point: a
     table at the best window (table_window), its mixed adds for these
     scalars' nonzero digits plus one a table point, its bytes written
     and read once. bound_ms_dbl_add: the doublings and adds that
@@ -1720,48 +1848,53 @@ def times_ladder(res, rate, put, ladder_sc, plain_rows=1024):
     from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
                                                 batch_scalar_mul_plain,
                                                 per_bit_ladder)
-    c = curves.CURVES["bn254"]
+    from gnark_tpu_torch.ec.proj_ec import _lw
+    c = curves.CURVES[cv]
     nbits = c.fr.bits
+    ops = mul_ops(get_ff(c.fp.name).nw)
     r = res["batch_scalar_mul"]
     for g2, sc in ((False, ladder_sc[0]), (True, ladder_sc[1])):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
         base = affine_words(ff, [c.g2 if g2 else c.g1])
-        n, Lw = sc.shape[0], 16 if g2 else 8
+        n, Lw = sc.shape[0], _lw(ff)
         op, sfx = ("2", "_g2") if g2 else ("", "")
         ms, got = timed(lambda: batch_scalar_mul(ff, base, nbits, sc), 3)
-        pms, want = timed(lambda: batch_scalar_mul_plain(
-            ff, base, nbits, sc[:plain_rows]), 1, warm=False)
-        err = max(max_abs(u[:plain_rows], v) for u, v in zip(got, want))
+        if plain_rows:
+            pms, want = timed(lambda: batch_scalar_mul_plain(
+                ff, base, nbits, sc[:plain_rows]), 1, warm=False)
+            err = max(max_abs(u[:plain_rows], v) for u, v in zip(got, want))
+            pshape = [min(plain_rows, n), Lw, nbits]
+        else:
+            (pms, pshape), err = r["phase3_plain" + sfx], 0
         seq_ms, want = timed(lambda: per_bit_ladder(ff, base, nbits, sc), 1)
         check(all(torch.equal(u, v) for u, v in zip(got, want)),
               f"ladder {'G2' if g2 else 'G1'} differs from the per-bit "
               f"K7 + K6 on the setup's scalars")
         del want
-        times_affine(res, rate, put, ff, got, g2)
+        times_affine(res, rate, put, ff, got, g2, ops=ops)
         del got
         w = table_window(n, nbits)
         tab = -(-nbits // w) * ((1 << w) - 1)
         dbls, adds, tab_adds = ladder_work(sc, nbits, w)
-        dbl_ops, add_ops = MUL_OPS["jac_dbl" + op], MUL_OPS["jac_madd" + op]
+        dbl_ops, add_ops = ops["jac_dbl" + op], ops["jac_madd" + op]
         put("batch_scalar_mul", sfx, [n, Lw, nbits], ms, pms,
             n * (32 + 3 * Lw * 4) + 2 * tab * 2 * Lw * 4,
-            (tab_adds + tab) * add_ops, err,
-            plain_shape=[min(plain_rows, n), Lw, nbits])
+            (tab_adds + tab) * add_ops, err, plain_shape=pshape)
         dbl_add = bound_ms(0, dbls * dbl_ops + adds * add_ops, rate)[0]
         r.update({"per_bit_ms" + sfx: seq_ms, "bound_ms_dbl_add" + sfx: dbl_add,
                   "work" + sfx: {"table_w": w, "table_points": tab,
                                  "table_adds": tab_adds, "dbl": dbls,
                                  "add": adds}})
-        log(f"ladder {'G2' if g2 else 'G1'} on {n} setup scalars: "
+        log(f"ladder {cv} {'G2' if g2 else 'G1'} on {n} setup scalars: "
             f"{ms:.3f} ms; the per-bit K7 + K6 sequence {seq_ms:.3f} ms; "
-            f"the same words, and those of the plain version on the first "
-            f"{min(plain_rows, n)}; bound {r['bound_ms' + sfx]:.3f} ms for a "
+            f"the same words, and those of the plain version on "
+            f"{pshape[0]}; bound {r['bound_ms' + sfx]:.3f} ms for a "
             f"table at w = {w} ({tab} points, {tab_adds} adds); "
             f"double-and-add {dbl_add:.3f} ms ({dbls} doublings, {adds} "
             f"adds)")
 
 
-def times_affine(res, rate, put, ff, P, g2, plain_rows=1024):
+def times_affine(res, rate, put, ff, P, g2, plain_rows=1024, ops=MUL_OPS):
     """K1's affine kernel on Setup's Jacobian points P (the ladder's
     output on the setup's scalars), held bit-exact against its plain
     version, the Fermat chain of plain products, on the first plain_rows
@@ -1796,10 +1929,10 @@ def times_affine(res, rate, put, ff, P, g2, plain_rows=1024):
           f"on the setup's points")
     del want
     e = ff.p.modulus - 2
-    M, S = MUL_OPS["mul"], 208
+    M, S = ops["mul"], ops["sqr"]
     chain = (e.bit_length() - 1) * S + (bin(e).count("1") - 1) * M
     if g2:       # norm 2S, zi 2M; zi^2 an Fp2 S, zi^3, x, y three Fp2 M
-        per = 2 * S + 2 * M + 528 + 3 * 792
+        per = 2 * S + 2 * M + 2 * M + 3 * 3 * M
     else:        # zi^2 S; zi^3, x, y 3M
         per = S + 3 * M
     sfx = "_g2" if g2 else ""
@@ -1811,7 +1944,8 @@ def times_affine(res, rate, put, ff, P, g2, plain_rows=1024):
     res["affine_words"].update({"bound_ms_fermat" + sfx: b,
                                 "bound_by_fermat" + sfx: by,
                                 "chain_ms" + sfx: chain_ms})
-    log(f"affine_words {'G2' if g2 else 'G1'} on {n} setup points: "
+    log(f"affine_words {ff.p.name} {'G2' if g2 else 'G1'} on {n} setup "
+        f"points: "
         f"{ms:.3f} ms; the K1 chain it replaced {chain_ms:.3f} ms, the "
         f"same words; a Fermat inverse a point would be bound at {b:.4f} "
         f"ms ({by})")
@@ -1824,12 +1958,11 @@ def k9_work(W, c):
     return 2 * (W << (c - 1)) + W - 1, c * (W - 1)
 
 
-def times_k4_k9(res, rate, put, key_cols):
+def times_k4_k9(res, rate, put, key_cols, cv="bn254"):
     """K4 (the digit kernel, the grouping, pass 1 and pass 2 timed apart)
     and K9 on the g16_20 setup key's A and B columns with random scalars,
-    at the main path's width and at c = 8. The plain K4 runs on the whole
-    G1 column at the main width, else on the first 2^16 points (against
-    the kernel on the same slice)."""
+    at the main path's width. The plain K4 runs on the first 2^16 points
+    (against the kernel on the same slice)."""
     import torch
     from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.ec.fp2 import get_ff2
@@ -1839,7 +1972,9 @@ def times_k4_k9(res, rate, put, key_cols):
         bucket_group, bucket_msm, bucket_msm_plain, bucket_reduce,
         bucket_reduce_plain, signed_digits)
     from gnark_tpu_torch.msm.pippenger import scalar_limbs
-    c = curves.CURVES["bn254"]
+    c = curves.CURVES[cv]
+    nbits, fpn = c.fr.bits, c.fp.name
+    ops = mul_ops(get_ff(fpn).nw)
     gen_t = torch.Generator(device=DEV).manual_seed(6)
     for g2, col in ((False, key_cols[0]), (True, key_cols[1])):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
@@ -1848,23 +1983,23 @@ def times_k4_k9(res, rate, put, key_cols):
         n, Lw = x.shape
         sc = rand_dev_words(n, 8, gen_t)
         op, gs = ("2", "_g2") if g2 else ("", "")
-        for cc, cs in ((C_MAIN, ""), (8, "_c8")):
-            if cs and cc == C_MAIN:
-                continue
+        # at the path's width only (c = 8's plain K4 and K9 took ~30 s a
+        # curve of the time limit; phase 3 holds c = 8 on 4,096 points)
+        for cc, cs in ((C_MAIN, ""),):
             sfx = cs + gs
             if not g2:
-                ms, digits = timed(lambda: bucket_digits(sc, 254, cc))
+                ms, digits = timed(lambda: bucket_digits(sc, nbits, cc, fpn))
                 pms, want = timed(lambda: signed_digits(scalar_limbs(sc),
-                                                        254, cc), 3)
+                                                        nbits, cc), 3)
                 W = digits.shape[0]
                 put("bucket_digits", cs, [n, 8], ms, pms, n * 32 + W * n * 4,
                     0, 0 if torch.equal(digits, want) else 1)
-            digits = bucket_digits(sc, 254, cc)
+            digits = bucket_digits(sc, nbits, cc, fpn)
             W, B = digits.shape[0], 1 << (cc - 1)
-            grp = bucket_group(digits, inf, cc)
+            grp = bucket_group(digits, inf, cc, fpn)
             part = bucket_acc(ff, b3, x, y, grp)
             split = {"group_ms": cuda_ms(lambda: bucket_group(digits, inf,
-                                                              cc)),
+                                                              cc, fpn)),
                      "pass1_ms": cuda_ms(lambda: bucket_acc(ff, b3, x, y,
                                                             grp)),
                      "pass2_ms": cuda_ms(lambda: bucket_fold(ff, b3, grp,
@@ -1873,19 +2008,19 @@ def times_k4_k9(res, rate, put, key_cols):
             ms, got = timed(lambda: bucket_msm(ff, b3, x, y, inf, digits,
                                                cc))
             pairs, nseg = int(grp.counts.sum()), int(grp.seg_off[-1])
-            nmul = (pairs - nseg) * MUL_OPS["proj_madd" + op] + \
-                nseg * MUL_OPS["proj_add" + op]
+            nmul = (pairs - nseg) * ops["proj_madd" + op] + \
+                nseg * ops["proj_add" + op]
             nbytes = n * (2 * Lw * 4 + 1) + W * n * 4 + pairs * 8 + \
                 W * B * (3 * Lw * 4 + 12)
-            pn = n if not (g2 or cs) else 1 << 16
+            pn = 1 << 16
             sl_ = (x[:pn], y[:pn], inf[:pn], digits[:, :pn])
             pms, want = timed(lambda: bucket_msm_plain(ff, b3, *sl_, cc), 1,
                               warm=False)
-            ref = got if pn == n else bucket_msm(ff, b3, *sl_, cc)
+            ref = bucket_msm(ff, b3, *sl_, cc)
             put("bucket_msm", sfx, [n, Lw, cc], ms, pms, nbytes, nmul,
                 proj_err(ff, ref, want), plain_shape=[pn, Lw, cc])
             res["bucket_msm"]["split" + sfx] = split
-            log(f"bucket_msm{sfx} split: {json.dumps(split)}; {pairs} "
+            log(f"bucket_msm {cv}{sfx} split: {json.dumps(split)}; {pairs} "
                 f"pairs, {nseg} segments")
             del want, ref, grp
             # K9 on these bucket sums
@@ -1895,8 +2030,8 @@ def times_k4_k9(res, rate, put, key_cols):
             adds, dbls = k9_work(W, cc)
             put("bucket_reduce", sfx, [W * B, Lw, cc], ms, pms,
                 W * B * 3 * Lw * 4 + 3 * Lw * 4,
-                adds * MUL_OPS["proj_add" + op] +
-                dbls * MUL_OPS["proj_dbl" + op], proj_err(ff, R, Rp))
+                adds * ops["proj_add" + op] +
+                dbls * ops["proj_dbl" + op], proj_err(ff, R, Rp))
             del got
         torch.cuda.empty_cache()
 
@@ -1904,7 +2039,7 @@ def times_k4_k9(res, rate, put, key_cols):
 SWEEP_C = (8, 10, 12, 13, 14, 16)
 
 
-def sweep_widths(key_cols):
+def sweep_widths(key_cols, cv="bn254"):
     """The whole bucket MSM (digit kernel, K4, K9), as a prove calls it,
     at each width of SWEEP_C (through GNARK_TPU_MSM_C) on the g16_20
     setup key's A (G1) and B (G2) columns and on their first 2^16 and
@@ -1916,7 +2051,7 @@ def sweep_widths(key_cols):
     from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm.bucket import msm_proj, window_bits
-    c = curves.CURVES["bn254"]
+    c = curves.CURVES[cv]
     gen_t = torch.Generator(device=DEV).manual_seed(8)
     for g2, col in ((False, key_cols[0]), (True, key_cols[1])):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
@@ -1928,12 +2063,12 @@ def sweep_widths(key_cols):
             for cc in SWEEP_C:
                 with setenv("GNARK_TPU_MSM_C", str(cc)):
                     row[cc], R = timed(lambda: msm_proj(ff, pts, sc[:n],
-                                                        254), 3)
+                                                        c.fr.bits), 3)
                 first = first or R
                 check(proj_err(ff, R, first) == 0,
                       f"bucket MSM at c = {cc} differs from c = "
                       f"{SWEEP_C[0]} ({n} points)")
-            log(f"bucket MSM width sweep, {'G2' if g2 else 'G1'}, {n} "
+            log(f"bucket MSM width sweep, {cv} {'G2' if g2 else 'G1'}, {n} "
                 f"points, ms by c: {json.dumps(row)}; best c = "
                 f"{min(row, key=row.get)}, default c = "
                 f"{window_bits(n, DEV)}; one group element at every c")
@@ -1941,14 +2076,15 @@ def sweep_widths(key_cols):
         torch.cuda.empty_cache()
 
 
-def rand_dev_words(n, lw, gen):
+def rand_dev_words(n, lw, gen, nw=8):
     """(n, lw) random words made on the card; the top word of each
-    8-word element is cut below 0x30000000, so every element is < p for
-    both BN254 fields."""
+    nw-word element is cut below 0x30000000 (8 words: < p for both BN254
+    fields and BLS12-381's scalar field) or 0x10000000 (12 words: < p for
+    BLS12-381's base field)."""
     import torch
     w = torch.randint(-2 ** 31, 2 ** 31, (n, lw), dtype=torch.int64,
                       device=DEV, generator=gen).to(torch.int32)
-    w[:, 7::8] &= 0x2FFFFFFF
+    w[:, nw - 1::nw] &= 0x2FFFFFFF if nw == 8 else 0x0FFFFFFF
     return w
 
 
@@ -2052,7 +2188,7 @@ def num_plain(ff, cols, pts, s, kernels=False):
                            pts.table(ff, pts.zhi), s, kernels=kernels)
 
 
-def phase_kernels_ff_ops(rng, res):
+def phase_kernels_ff_ops(rng, res, cv="bn254"):
     """K10-K14 against their plain versions: one row, rows not a power of
     two, 2^16 and 2^20 rows, a third of each operand in [p, 2p) and a
     zero row in every 97 (0 and p); K11 on all zeros, a whole tile of
@@ -2067,11 +2203,14 @@ def phase_kernels_ff_ops(rng, res):
     last; K14 at n = 1, 255, 256, 257 and 2^16 + 3 with one Z_H and a
     period-4 table, also against the K1 / K10 / K11 sequence it
     replaced. Then the CUDA kernels one call of each starts, by the
-    profiler."""
+    profiler in a fresh process (kernel_counts). On the second curve's builds (the same sources in the sound
+    class) the sizes past 2^20 that exercise the tiles' geometry (K11 at
+    256 tiles and 2^21, K12 at 2^22 + 1 and 2^24 + 3, K13 at 2^18 + 1)
+    are left to BN254's run."""
     import torch
     from gnark_tpu_torch.backend.plonk_num import plonk_numerator
     from gnark_tpu_torch.ff import get_ff, ops
-    fr = get_ff("bn254_fr")
+    fr = get_ff(f"{cv}_fr")
     q = fr.p.modulus
     err = {k: 0 for k in FF_OPS_KERNELS}
 
@@ -2105,7 +2244,9 @@ def phase_kernels_ff_ops(rng, res):
                  "all zeros": dev_rows(fr, 2 * T + 3, gen, range(2 * T + 3)),
                  "one nonzero row": dev_rows(fr, 5000, gen, [
                      i for i in range(5000) if i != 3001])}
-    for n in (T - 1, T, T + 1, 256 * T, 256 * T + 1, 1 << 21):
+    full = cv == "bn254"
+    for n in (T - 1, T, T + 1) + ((256 * T, 256 * T + 1, 1 << 21) if full
+                                  else ()):
         inv_cases[n] = dev_rows(fr, n, gen, range(7, n, 997))
     for what, a in inv_cases.items():
         agree("batch_inv", ops.batch_inv(fr, a), ops.batch_inv_plain(fr, a),
@@ -2113,12 +2254,13 @@ def phase_kernels_ff_ops(rng, res):
     T = ops.SCAN_TILE
     scan_cases = {"a zero inside": dev_rows(fr, 5 * T + 7, gen,
                                             [3 * T + 100])}
-    for n in (T - 1, T, T + 1, 1 << 20, (1 << 22) + 1, (1 << 24) + 3):
+    for n in (T - 1, T, T + 1, 1 << 20) + (((1 << 22) + 1, (1 << 24) + 3)
+                                           if full else ()):
         scan_cases[n] = dev_rows(fr, n, gen)
     for what, a in scan_cases.items():
         agree("scan_mul", ops.scan_mul(fr, a), scan_plain(fr, a), what)
     del inv_cases, scan_cases, a
-    for n in (1, 256, 257, (1 << 18) + 1):
+    for n in (1, 256, 257) + (((1 << 18) + 1,) if full else ()):
         pows = dev_rows(fr, n, gen)
         for k in (1, 5, 9):          # nine: two launches of up to eight
             cols = [dev_rows(fr, max(n - j, 1), gen) for j in range(k)]
@@ -2139,7 +2281,7 @@ def phase_kernels_ff_ops(rng, res):
     del cols, pts, got
     for k, v in err.items():
         res[k]["max_abs_err"] = v
-    log("K10 ff_addsub, K11 batch_inv, K12 scan_mul, K13 dot: n = 1, 5, "
+    log(f"K10 ff_addsub, K11 batch_inv, K12 scan_mul, K13 dot {cv}: n = 1, 5, "
         "2049, 2^16, 2^20 with lazy inputs and zeros; K11 on a tile of "
         "zeros, all zeros, one nonzero row, n = 2047, 2048, 2049, 2^19, "
         "2^19 + 1, 2^21; K12 with a zero inside and at n = 8191, 8192, "
@@ -2147,8 +2289,48 @@ def phase_kernels_ff_ops(rng, res):
         "columns of unequal lengths) at n = 1, 256, 257, 2^18 + 1; K14 at "
         "n = 1, 255, 256, 257, 2^16 + 3, period 1 and 4, also against the "
         "K1 / K10 / K11 sequence: bit-exact against their plain versions")
-    a = rand_words(fr, 1 << 20, rng)
-    cols, pts, sc = num_case(fr, 1 << 20, 1, gen, rng)
+    seen = kernel_counts(cv)
+    if not any(seen.values()):
+        log(f"CUDA kernels a call of K10-K14 {cv}: not measured (the "
+            f"profiler saw no device activity)")
+        return
+    counts = {}
+    for k, names in seen.items():
+        ours = [m for m in names if m in FF_OPS_KERNELS[k]]
+        counts[k] = len(ours)
+        check(sorted(ours) == sorted(FF_OPS_KERNELS[k]),
+              f"{k} {cv}: one call at 2^20 started {ours}, not "
+              f"{FF_OPS_KERNELS[k]}")
+    log(f"CUDA kernels one call starts at 2^20 {cv} (profiler): "
+        + json.dumps(counts) + "; everything the profiler saw: "
+        + json.dumps(seen))
+
+
+def kernel_counts(cv):
+    """The CUDA kernels one call of each of K10-K14 starts at 2^20 rows
+    of curve cv's scalar field, by the profiler's device trace, taken in
+    a fresh process (this script with --kernel-counts cv; late in a long
+    process the profiler can record nothing): {wrapper: [kernel
+    names]}."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--kernel-counts", cv], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"--kernel-counts {cv} failed: "
+          f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def traced_ff_ops(cv):
+    """kernel_counts' process: one call of each of K10-K14 at 2^20 rows
+    (their libraries are built already), each under the profiler."""
+    import torch
+    from gnark_tpu_torch.backend.plonk_num import plonk_numerator
+    from gnark_tpu_torch.ff import get_ff, ops
+    fr = get_ff(f"{cv}_fr")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9)
+    a = dev_rows(fr, 1 << 20, gen)
+    cols, pts, sc = num_case(fr, 1 << 20, 1, gen, random.Random(5))
     pts.zdiv(fr)                   # its points' kept column, made once
     calls = {"ff_addsub": lambda: ops.add(fr, a, a),
              "batch_inv": lambda: ops.batch_inv(fr, a),
@@ -2156,21 +2338,9 @@ def phase_kernels_ff_ops(rng, res):
              "dot": lambda: ops.dot(fr, a, a),
              "dot_many": lambda: ops.dot_many(fr, [a] * 5, a),
              "plonk_numerator": lambda: plonk_numerator(fr, cols, pts, sc)}
-    seen = {k: cuda_kernels(fn) for k, fn in calls.items()}
-    if not any(seen.values()):
-        log("CUDA kernels a call of K10-K14: not measured (the profiler "
-            "saw no device activity)")
-        return
-    counts = {}
-    for k, names in seen.items():
-        ours = [m for m in names if m in FF_OPS_KERNELS[k]]
-        counts[k] = len(ours)
-        check(sorted(ours) == sorted(FF_OPS_KERNELS[k]),
-              f"{k}: one call at 2^20 started {ours}, not "
-              f"{FF_OPS_KERNELS[k]}")
-    log("CUDA kernels one call starts at 2^20 (profiler): "
-        + json.dumps(counts) + "; everything the profiler saw: "
-        + json.dumps(seen))
+    for fn in calls.values():      # loads the libraries outside the trace
+        fn()
+    return {k: cuda_kernels(fn) for k, fn in calls.items()}
 
 
 def tampered_plonk(proof, curve):
@@ -2185,18 +2355,19 @@ def tampered_plonk(proof, curve):
                 proof, z=host.ec_add(curve.host_fp, proof.z, curve.g1))}
 
 
-def phase_plonk_small(res):
+def phase_plonk_small(res, cv="bn254"):
     """mimc_plonk (examples/mimc_plonk.py's circuit, SRS 2048) and
     rc_plonk (PLONK_RC_VALUES values through std/rangecheck: one BSB22
-    commitment): the SRS and setup on the card, a prove on the card and
-    the same prove on the CPU (the keys copied over) with equal bytes,
-    verify, and a wrong public value (mimc_plonk) or a tampered pi2
-    commitment (rc_plonk) refused."""
+    commitment), or on the second curve cubic_381_plonk
+    (examples/cubic.py's): the SRS and setup on the card, a prove on the
+    card (cubic_381_plonk: and the same prove on the CPU, the keys copied
+    over, with equal bytes), verify, and a wrong public value or a
+    tampered pi2 commitment (rc_plonk) refused."""
     import dataclasses
-    from gnark_tpu_torch import fields
     from gnark_tpu_torch.backend import kzg, plonk
     from gnark_tpu_torch.backend.groth16_check import (
-        MimcPreimage, RangeChecked, range_checked_assignment)
+        Cubic, MimcPreimage, RangeChecked, range_checked_assignment)
+    from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.frontend import compile_circuit, witness
     from gnark_tpu_torch.frontend.scs import SCSBuilder
     from gnark_tpu_torch.std.hash.mimc import mimc_hash
@@ -2204,13 +2375,20 @@ def phase_plonk_small(res):
     cases = (("mimc_plonk", MimcPreimage(),
               MimcPreimage(pre=pre, h=mimc_hash([pre])), 2048),
              ("rc_plonk", RangeChecked(PLONK_RC_VALUES),
-              range_checked_assignment(PLONK_RC_VALUES, 5), None))
+              range_checked_assignment(PLONK_RC_VALUES, 5), None)) \
+        if cv == "bn254" else \
+        (("cubic_381_plonk", Cubic(), Cubic(x=3, y=35), 64),)
+    # the card's proof against the CPU's: the second curve's cubic (the
+    # BN254 cells' CPU halves, 36-68 s, are tests/test_torch_cuda.py's
+    # test_plonk_card_equals_cpu)
+    cpu_half = cv != "bn254"
     for what, circ, assign, srs_n in cases:
         t = time.perf_counter()
-        cs = compile_circuit(circ, fields.BN254_FR, builder_cls=SCSBuilder)
+        cs = compile_circuit(circ, curves.CURVES[cv].fr,
+                             builder_cls=SCSBuilder)
         pub, sec = witness(assign, cs)
         N = 1 << (cs.nb_public + cs.nb_constraints - 1).bit_length()
-        srs = kzg.setup_srs("bn254", srs_n or N + 8, rng=random.Random(0),
+        srs = kzg.setup_srs(cv, srs_n or N + 8, rng=random.Random(0),
                             device=DEV)
         pk, vk = plonk.setup(cs, srs)
         sync()
@@ -2218,19 +2396,32 @@ def phase_plonk_small(res):
             f"commitment(s), N = {vk.size}; SRS and setup on the card in "
             f"{time.perf_counter() - t:.2f} s")
         tm = {}
+        wrappers = all_wrappers()
+        for wr in wrappers:
+            wr.launches = 0
         t = time.perf_counter()
         proof = plonk.prove(cs, pk, pub, sec, rng=random.Random(1),
                             timings=tm, device=DEV)
         tm["total"] = time.perf_counter() - t
-        log(f"{what} prove on the card (s): {fmt_times(tm)}")
-        t = time.perf_counter()
-        cpu = plonk.prove(cs, pk.to("cpu"), pub, sec, rng=random.Random(1),
-                          device="cpu")
-        check(dataclasses.asdict(cpu) == dataclasses.asdict(proof),
-              f"{what}: the card's proof differs from the CPU's")
-        log(f"{what}: the CPU's prove (plain versions, "
-            f"{time.perf_counter() - t:.1f} s) gives the card's proof "
-            f"byte for byte")
+        launches = {wr.__name__: wr.launches for wr in wrappers}
+        log(f"{what} prove on the card (s): {fmt_times(tm)}; launches "
+            + json.dumps(launches))
+        if cpu_half:    # K5 takes this small domain's transforms
+            check(launches["radix2_ntt"] > 0,
+                  f"{what}: radix2_ntt was not launched")
+            res["radix2_ntt"]["launches"] = launches["radix2_ntt"]
+            t = time.perf_counter()
+            # the plain MSM epilogue walks every bucket: c = 4 halves the
+            # CPU's time at these sizes, and the MSM's value does not
+            # depend on c
+            with setenv("GNARK_TPU_MSM_C", "4"):
+                cpu = plonk.prove(cs, pk.to("cpu"), pub, sec,
+                                  rng=random.Random(1), device="cpu")
+            check(dataclasses.asdict(cpu) == dataclasses.asdict(proof),
+                  f"{what}: the card's proof differs from the CPU's")
+            log(f"{what}: the CPU's prove (plain versions, "
+                f"{time.perf_counter() - t:.1f} s) gives the card's proof "
+                f"byte for byte")
         check(plonk.verify(proof, vk, pub), f"{what}: verify rejected")
         if pub:
             check(not plonk.verify(proof, vk, [(pub[0] + 1) % vk.curve.fr
@@ -2245,7 +2436,7 @@ def phase_plonk_small(res):
                 f"False")
 
 
-def phase_plonk20(res):
+def phase_plonk20(res, cv="bn254"):
     """plonk_20: BN254 PLONK on 2^20 - 1 squaring-chain gates, N = 2^20
     (the rho path): an SRS of 2^20 + 8 (one ladder and one affine_words
     launch), setup, three proves with every launch count set to 0 first
@@ -2257,30 +2448,31 @@ def phase_plonk20(res):
     from gnark_tpu_torch.backend import kzg, plonk
     from gnark_tpu_torch.backend.groth16_check import plonk_square_chain
     from gnark_tpu_torch.backend.plonk_device import RHO_MIN_LOG
-    from gnark_tpu_torch.ff import ops
+    from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.msm.fixed_base import affine_words, batch_scalar_mul
+    what = "plonk_20" if cv == "bn254" else "plonk_381_20"
     t = time.perf_counter()
-    cs = plonk_square_chain(PLONK_CHAINS, PLONK_LEN)
-    log(f"plonk_20: circuit {cs.summary()} built in "
+    cs = plonk_square_chain(PLONK_CHAINS, PLONK_LEN, curves.CURVES[cv].fr)
+    log(f"{what}: circuit {cs.summary()} built in "
         f"{time.perf_counter() - t:.2f} s")
     for wr in (batch_scalar_mul, affine_words):
         wr.launches = 0
     tm = {}
     t = time.perf_counter()
-    srs = kzg.setup_srs("bn254", (1 << 20) + 8, rng=random.Random(3),
-                        device=DEV, timings=tm)
+    srs = kzg.setup_srs(cv, PLONK_CHAINS * PLONK_LEN + 8,
+                        rng=random.Random(3), device=DEV, timings=tm)
     tm["total"] = time.perf_counter() - t
-    log(f"plonk_20 SRS of 2^20 + 8 (s): {fmt_times(tm)}")
+    log(f"{what} SRS of 2^20 + 8 (s): {fmt_times(tm)}")
     check(batch_scalar_mul.launches == 1 and affine_words.launches == 1,
-          "plonk_20 SRS: not one ladder and one affine_words launch")
+          f"{what} SRS: not one ladder and one affine_words launch")
     tm = {}
     t = time.perf_counter()
     pk, vk = plonk.setup(cs, srs, timings=tm)
     tm["total"] = time.perf_counter() - t
-    log(f"plonk_20 setup (s): {fmt_times(tm)}")
-    check(vk.size == 1 << 20, f"plonk_20: N = {vk.size}, not 2^20")
+    log(f"{what} setup (s): {fmt_times(tm)}")
+    check(vk.size == 1 << 20, f"{what}: N = {vk.size}, not 2^20")
     check(vk.size >= 1 << RHO_MIN_LOG,
-          "plonk_20 would not take the rho path")
+          f"{what} would not take the rho path")
 
     wrappers = all_wrappers()
     for wr in wrappers:
@@ -2300,40 +2492,40 @@ def phase_plonk20(res):
         tm["total"] = time.perf_counter() - t
         calls = {k: ({wr.__name__: wr.launches for wr in wrappers}[k]
                      - was[k]) for k in list(want) + list(most)}
-        log(f"plonk_20 prove {i} (s): {fmt_times(tm)}; calls: "
+        log(f"{what} prove {i} (s): {fmt_times(tm)}; calls: "
             + json.dumps(calls))
         if i:       # the steady proves (the first also builds the domains
             #         and the shifts' kept Z_H(x) / (x - 1) columns)
             for k, v in want.items():
-                check(calls[k] == v, f"plonk_20 prove {i}: {k} called "
+                check(calls[k] == v, f"{what} prove {i}: {k} called "
                       f"{calls[k]} times, not {v}")
             for k, v in most.items():
-                check(calls[k] <= v, f"plonk_20 prove {i}: {k} called "
+                check(calls[k] <= v, f"{what} prove {i}: {k} called "
                       f"{calls[k]} times, more than {v}")
     launches = {wr.__name__: wr.launches for wr in wrappers}
-    log("launches during 3 plonk_20 proves: " + json.dumps(launches))
+    log(f"launches during 3 {what} proves: " + json.dumps(launches))
     for k in ("ff_addsub", "batch_inv", "scan_mul", "dot", "dot_many",
               "plonk_numerator", "mont_mul", "fourstep_ntt", "bucket_digits",
               "bucket_msm", "bucket_reduce"):
-        check(launches[k] > 0, f"plonk_20: {k} was not launched")
+        check(launches[k] > 0, f"{what}: {k} was not launched")
     for k in ("proj_add", "proj_double", "radix2_ntt", "row_fft"):
-        check(launches[k] == 0, f"plonk_20: {k} was launched "
+        check(launches[k] == 0, f"{what}: {k} was launched "
               f"{launches[k]} times")
     for k in FF_OPS_KERNELS:
         res[k]["launches"] = launches[k]
     proof = proofs[1]
     t = time.perf_counter()
-    check(plonk.verify(proof, vk, []), "plonk_20: verify rejected a proof")
-    log(f"plonk_20 verify: True in {time.perf_counter() - t:.3f} s")
-    for what, bad in tampered_plonk(proof, vk.curve).items():
+    check(plonk.verify(proof, vk, []), f"{what}: verify rejected a proof")
+    log(f"{what} verify: True in {time.perf_counter() - t:.3f} s")
+    for tag, bad in tampered_plonk(proof, vk.curve).items():
         check(not plonk.verify(bad, vk, []),
-              f"plonk_20: verify accepted a tampered {what}")
-    log("plonk_20 verify with a tampered claimed value: False; with a "
-        "tampered commitment: False")
+              f"{what}: verify accepted a tampered {tag}")
+    log(f"{what} verify with a tampered claimed value: False; with a "
+        f"tampered commitment: False")
     return launches
 
 
-def times_ff_ops(res, put, rng, n=1 << 20):
+def times_ff_ops(res, put, rng, n=1 << 20, cv="bn254"):
     """K10-K14 at plonk_20's shapes (N = 2^20; K11 also at the openings'
     2N), each against its plain version on the same inputs. Bounds: K10
     the bytes (two reads and a write, or one read and a write with the
@@ -2351,7 +2543,7 @@ def times_ff_ops(res, put, rng, n=1 << 20):
     import torch
     from gnark_tpu_torch.backend.plonk_num import plonk_numerator
     from gnark_tpu_torch.ff import get_ff, ops
-    fr = get_ff("bn254_fr")
+    fr = get_ff(f"{cv}_fr")
     mul = MUL_OPS["mul"]
     a, b = rand_words(fr, n, rng), rand_words(fr, n, rng)
     for sfx, bb, nb in (("", b, 3 * n * 32), ("_bcast", b[:1], 2 * n * 32)):
@@ -2359,7 +2551,7 @@ def times_ff_ops(res, put, rng, n=1 << 20):
         pms, want = timed(lambda: ops.add_plain(fr, a, bb), 3)
         put("ff_addsub", sfx, [n, 8], ms, pms, nb, 0, max_abs(got, want))
     ms, got = timed(lambda: ops.dot(fr, a, b))
-    pms, want = timed(lambda: ops.dot_plain(fr, a, b), 3)
+    pms, want = timed(lambda: ops.dot_plain(fr, a, b), 1)
     put("dot", "", [n, 8], ms, pms, 2 * n * 32 + 32,
         n * MUL_OPS["sop2"] // 2, max_abs(got, want))
     # the evaluations' batch: five columns (l, r, o, s1, s2 of plonk_20:
@@ -2368,7 +2560,7 @@ def times_ff_ops(res, put, rng, n=1 << 20):
     gen.manual_seed(5)
     cols = [dev_rows(fr, n - (j % 2) * 2, gen) for j in range(5)]
     ms, got = timed(lambda: ops.dot_many(fr, cols, b))
-    pms, want = timed(lambda: ops.dot_many_plain(fr, cols, b), 3)
+    pms, want = timed(lambda: ops.dot_many_plain(fr, cols, b), 1)
     rows = sum(c.shape[0] for c in cols)
     put("dot_many", "", [5, n, 8], ms, pms, (rows + n + 5) * 32,
         rows * MUL_OPS["sop2"] // 2, max_abs(got, want))
@@ -2376,7 +2568,8 @@ def times_ff_ops(res, put, rng, n=1 << 20):
                                          for c in cols]))
     check(torch.equal(got5, got), "dot_many: five dot calls disagree")
     res["dot_many"]["five_dot_ms"] = ms5
-    log(f"dot_many [5, {n}, 8]: {ms:.4f} ms; five dot calls {ms5:.4f} ms")
+    log(f"dot_many {cv} [5, {n}, 8]: {ms:.4f} ms; five dot calls "
+        f"{ms5:.4f} ms")
     del cols, got5
     cols, pts, sc = num_case(fr, n, 1, gen, rng)
     ms, got = timed(lambda: plonk_numerator(fr, cols, pts, sc))
@@ -2387,12 +2580,12 @@ def times_ff_ops(res, put, rng, n=1 << 20):
     check(torch.equal(seq, got), "plonk_numerator: the K1 / K10 / K11 "
           "sequence disagrees")
     res["plonk_numerator"]["sequence_ms"] = sms
-    log(f"plonk_numerator [{n}, 8]: {ms:.4f} ms; the K1 / K10 / K11 "
+    log(f"plonk_numerator {cv} [{n}, 8]: {ms:.4f} ms; the K1 / K10 / K11 "
         f"sequence it replaced (45 launches) {sms:.4f} ms; the bytes "
         f"alone {bound_ms(16 * n * 32, 0, put.rate)[0]:.4f} ms")
     del cols, pts, got, want, seq
     ms, got = timed(lambda: ops.scan_mul(fr, a))
-    pms, want = timed(lambda: ops.scan_mul_plain(fr, a), 3)
+    pms, want = timed(lambda: ops.scan_mul_plain(fr, a), 1)
     put("scan_mul", "", [n, 8], ms, pms, 2 * n * 32, (n - 1) * mul,
         max_abs(got, want))
     log(f"scan_mul {[n, 8]}: two products an element (the kernel's work) "
@@ -2401,7 +2594,7 @@ def times_ff_ops(res, put, rng, n=1 << 20):
     for sfx, m in (("", n), ("_2n", 2 * n)):
         x = rand_words(fr, m, rng) if m != n else a
         ms, got = timed(lambda: ops.batch_inv(fr, x))
-        pms, want = timed(lambda: ops.batch_inv_plain(fr, x), 3)
+        pms, want = timed(lambda: ops.batch_inv_plain(fr, x), 1)
         put("batch_inv", sfx, [m, 8], ms, pms, 2 * m * 32, 3 * m * mul,
             max_abs(got, want))
     del a, b, x, got, want
@@ -2488,6 +2681,16 @@ KERNELS = {
 }
 
 
+def log_builds(built):
+    """Each library's build seconds and ptxas's register / spill lines."""
+    for k, (sec, out) in sorted(built.items(), key=lambda kv: kv[1][0]):
+        log(f"build {k}: {sec:.1f} s")
+        for line in out.splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Function properties")):
+                log("  " + line.strip())
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     t_start = time.perf_counter()
@@ -2505,6 +2708,11 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--kernel-counts" in argv:
+        cv = argv[argv.index("--kernel-counts") + 1]
+        print(json.dumps(traced_ff_ops(cv)), flush=True)
+        return 0
+    second = None
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2516,61 +2724,100 @@ def main(argv) -> int:
 
         from gnark_tpu_torch import cuda, native
         t = time.perf_counter()
-        built = cuda.build_all()
-        for k, (sec, out) in built.items():
-            log(f"build {k}: {sec:.1f} s")
-            for line in out.splitlines():
-                if any(w in line for w in ("registers", "spill",
-                                           "Function properties")):
-                    log("  " + line.strip())
+        # every build starts now, one nvcc each; the second curve's at a
+        # lower priority, so that BN254's (wanted first) take the cores,
+        # and they are waited for only before the second curve's phases
+        first = cuda.start_builds(cuda.builds(["bn254_fp", "bn254_fr"]))
+        second = cuda.start_builds(cuda.builds([f"{CURVE2}_fp",
+                                                f"{CURVE2}_fr"]), nice=10)
+        log_builds(cuda.finish_builds(first))
         t1 = time.perf_counter()
         native._lib()
         log(f"build native solver: {time.perf_counter() - t1:.1f} s; "
-            f"all builds {time.perf_counter() - t:.1f} s")
+            f"BN254's builds {time.perf_counter() - t:.1f} s")
 
         res = {k: {"name": k, "route": "cuda", "source": s, "replaces": r,
                    "launches": 0, "max_abs_err": None, "ms": None,
                    "plain_ms": None, "bound_ms": None, "bound_by": None,
                    "library_ms": None}
                for k, (s, r) in KERNELS.items()}
+        # the second curve's builds, rows of their own
+        res2 = {k: dict(v, name=f"{k}@{CURVE2}",
+                        replaces=v["replaces"] + f" ({CURVE2} build)")
+                for k, v in res.items()}
         from gnark_tpu_torch.msm.bucket import window_bits
         global C_MAIN
         C_MAIN = window_bits(1 << 20, DEV)
         log(f"bucket MSM window width at 2^20 points: c = {C_MAIN}")
         rng = random.Random(2024)
-        phase_kernels(rng, res)
-        phase_kernels_jac_ntt(rng, res)
-        phase_kernels_ladder(rng, res)
-        phase_kernels_affine(rng, res)
-        phase_kernels_ff_ops(rng, res)
+
+        def step(what, fn, *args):
+            """fn(*args), its wall time and the run's so far logged."""
+            t = time.perf_counter()
+            out = fn(*args)
+            log(f"[time] {what}: {time.perf_counter() - t:.1f} s "
+                f"({time.perf_counter() - t_start:.1f} s in all)")
+            return out
+
+        def phase3(cv, r):
+            step(f"phase 3 {cv} K1-K4, K9", phase_kernels, rng, r, cv)
+            step(f"phase 3 {cv} K5-K8", phase_kernels_jac_ntt, rng, r, cv)
+            step(f"phase 3 {cv} ladder", phase_kernels_ladder, rng, r, cv)
+            step(f"phase 3 {cv} affine", phase_kernels_affine, rng, r, cv)
+            step(f"phase 3 {cv} K10-K14", phase_kernels_ff_ops, rng, r, cv)
+
+        def second_builds():
+            t = time.perf_counter()
+            log_builds(cuda.finish_builds(second))
+            log(f"{CURVE2}'s builds waited for {time.perf_counter() - t:.1f}"
+                f" s")
+
+        phase3("bn254", res)
         if quick:
+            second_builds()
+            phase3(CURVE2, res2)
             # the transforms and K8 / the fold at their path's shapes (a
             # g16_20 wire MSM: 2^20 + 2049 points, the class of 2^20 + 1)
             put = make_put(res, int_mul_rate())
             times_fourstep(res, put, rng, 1 << 20)
             times_k8(put, (1 << 20) + 1)
             times_ff_ops(res, put, rng)
-            log(json.dumps({"kernels": list(res.values())}))
-            log(smi)
+            print(json.dumps({"kernels": list(res.values())
+                              + list(res2.values())}), flush=True)
+            print(smi, flush=True)
             return 0
-        n_pts, cs, pk, proof = phase_main(res)
-        phase_scan(res, cs, pk, proof)
+        n_pts, cs, pk, proof = step("phase 4 g16_20", phase_main, res)
         del pk, proof
-        ladder_sc, key_cols = phase_setup(res, cs, rng)
+        ladder_sc, key_cols = step("phase 5 g16_20 setup", phase_setup, res,
+                                   cs, rng)
         del cs
-        phase_merkle(res)
-        phase_rc20(res)
-        phase_plonk_small(res)
-        phase_plonk20(res)
-        phase_times(res, rng, n_pts, ladder_sc, key_cols)
+        step("phase 5 merkle_d12", phase_merkle, res)
+        step("phase 5 rc_20", phase_rc20, res)
+        step("phase 5 mimc_plonk, rc_plonk", phase_plonk_small, res)
+        step("phase 5 plonk_20", phase_plonk20, res)
+        second_builds()
+        phase3(CURVE2, res2)
+        ladder_sc2, key_cols2, n_pts2 = step("phase 5 g16_381_20",
+                                             phase_g16_2, res2, rng)
+        step("phase 5 plonk_381_20", phase_plonk20, res2, CURVE2)
+        step("phase 5 cubic_381_plonk", phase_plonk_small, res2, CURVE2)
+        step("phase 6 bn254", phase_times, res, rng, n_pts, ladder_sc,
+             key_cols)
+        del ladder_sc, key_cols
+        step(f"phase 6 {CURVE2}", phase_times, res2, rng, n_pts2,
+             ladder_sc2, key_cols2, CURVE2)
         torch.cuda.synchronize()
         log(f"chip_smoke: every phase passed, "
             f"{time.perf_counter() - t_start:.1f} s in all")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(json.dumps({"kernels": list(res.values())}))
-    log(smi)
+    finally:
+        if second is not None:
+            cuda.stop_builds(second)
+    print(json.dumps({"kernels": list(res.values()) + list(res2.values())}),
+          flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""Groth16 Setup, Prove and Verify on the card (BN254).
+"""Groth16 Setup, Prove and Verify on the card (BN254, BLS12-381; the
+other curves on the CPU).
 
 Counterpart of gnark_tpu.backend.groth16 without a mesh (reference
 backend/groth16/bn254/{setup,prove,verify}.go):
@@ -42,7 +43,7 @@ from gnark_tpu_torch.backend import gnark_fs
 from gnark_tpu_torch.backend.transcript import (mimc_point_writes,
                                                outer_mimc_field)
 from gnark_tpu_torch.constraint import ConstraintSystem, solve_auto
-from gnark_tpu_torch.cuda import resolve_device
+from gnark_tpu_torch.cuda import check_curve, resolve_device
 from gnark_tpu_torch.ec import curves as curves_mod
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ec.fp2 import FF2, get_ff2
@@ -363,6 +364,7 @@ def setup(cs: ConstraintSystem, curve_name: str, rng=None, device=None,
     g1_ladder, g2_ladder, to_affine, vk)."""
     curve = curves_mod.CURVES[curve_name]
     device = resolve_device(device)
+    check_curve(curve, device)
     mark = _mark_fn(timings, device, get_logger("gnark_tpu_torch"), "setup")
     s = setup_scalars(cs, curve, rng)
     mark("scalars")
@@ -498,7 +500,7 @@ def _bsb22_hint(pk, device, commitments, poks, cm_vals, recursion,
     is the hash of C and the hashed public-committed values. clock[0]
     collects the seconds spent here."""
     curve = pk.curve
-    ffp = get_ff(curve.fp.name)
+    ffp, ffr = get_ff(curve.fp.name), get_ff(curve.fr.name)
     ck_iter = iter(pk.commitment_keys)
 
     def hint(qq, inputs):
@@ -506,7 +508,7 @@ def _bsb22_hint(pk, device, commitments, poks, cm_vals, recursion,
         key = next(ck_iter)
         vals = [v % qq for v in inputs]
         hashed, priv = vals[:key.nb_public], vals[key.nb_public:]
-        sc = _scalar_words(priv, ffp.nw, device)
+        sc = _scalar_words(priv, ffr.nw, device)
         C, pok = (_msm_affine_host(ffp, curve.host_fp, b, sc, curve.fr.bits)
                   for b in (key.basis, key.basis_exp_sigma))
         commitments.append(C)
@@ -545,6 +547,7 @@ def prove(cs: ConstraintSystem, pk: ProvingKey, public, secret, rng=None,
     rnd = rng.randrange if rng is not None else \
         (lambda n: secrets.randbelow(n))
     device = resolve_device(device)
+    check_curve(curve, device)
     if pk.device != device:
         raise ValueError(f"the proving key is on {pk.device}, not {device}")
     mark = _mark_fn(timings, device, get_logger("gnark_tpu_torch"), "prove")
@@ -715,6 +718,7 @@ def proving_key_from_arrays(d: dict, curve: str = "bn254",
     (host point) and nb_public."""
     dev = resolve_device(device)
     c = curves_mod.CURVES[curve]
+    check_curve(c, dev)
 
     def pts(t):
         x, y, inf = t
@@ -744,6 +748,7 @@ def dummy_setup(cs: ConstraintSystem, curve_name: str,
     made with it do NOT verify."""
     dev = resolve_device(device)
     curve = curves_mod.CURVES[curve_name]
+    check_curve(curve, dev)
     if curve.fr.modulus != cs.q:
         raise ValueError("constraint system field != curve scalar field")
     nb_wires = cs.nb_wires

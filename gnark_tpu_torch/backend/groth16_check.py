@@ -3,7 +3,8 @@
 A known-log proving key holds in column j the point k_j * G with
 k_j = (j + offset) % 4096 + 1 (4096 distinct multiples from a chain of
 host additions, tiled), so every MSM of the prove has a known result:
-(sum_j k_j * s_j mod r) * G, one host scalar multiplication. The
+(sum_j k_j * s_j mod r) * G, one host scalar multiplication. A key from
+`groth16.setup` has known logs too, the setup's scalars (`setup_logs`). The
 quotient H is checked by Schwartz-Zippel at a random point tau:
 A(tau) * B(tau) - C(tau) == H(tau) * (tau^N - 1), with A, B, C
 evaluated from the solver's columns by the barycentric formula.
@@ -14,7 +15,8 @@ membership circuit of examples/merkle_membership.py at any depth;
 `RangeChecked` range-checks secret 64-bit values through the shared
 lookup table of std/rangecheck, which makes one BSB22 commitment. For
 PLONK: `plonk_square_chain` builds the PLONK benchmark's SCS circuit
-in the IR, and `MimcPreimage` is examples/mimc_plonk.py's circuit.
+in the IR, `MimcPreimage` is examples/mimc_plonk.py's circuit and
+`Cubic` examples/cubic.py's.
 """
 
 from __future__ import annotations
@@ -47,9 +49,11 @@ class CheckError(AssertionError):
     pass
 
 
-def synth_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
-    """n_chains independent squaring chains of chain_len constraints."""
-    cs = ConstraintSystem(fields.BN254_FR, "r1cs")
+def synth_square_chain(n_chains: int, chain_len: int,
+                       field=fields.BN254_FR) -> ConstraintSystem:
+    """n_chains independent squaring chains of chain_len constraints
+    over `field` (a curve's scalar field)."""
+    cs = ConstraintSystem(field, "r1cs")
     cs.secret_names = [f"x{i}" for i in range(n_chains)]
     for ch in range(n_chains):
         w = 1 + ch
@@ -63,13 +67,14 @@ def synth_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
     return cs
 
 
-def plonk_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
-    """bench.py _secondary_plonk18's SCS circuit at any width: n_chains
-    squaring chains (x * x - o == 0) of chain_len gates, the last one
-    gate short, so that with the constant-one wire's public row N =
-    n_chains * chain_len."""
-    q = fields.BN254_FR.modulus
-    cs = ConstraintSystem(fields.BN254_FR, "scs")
+def plonk_square_chain(n_chains: int, chain_len: int,
+                       field=fields.BN254_FR) -> ConstraintSystem:
+    """bench.py _secondary_plonk18's SCS circuit at any width over
+    `field`: n_chains squaring chains (x * x - o == 0) of chain_len
+    gates, the last one gate short, so that with the constant-one wire's
+    public row N = n_chains * chain_len."""
+    q = field.modulus
+    cs = ConstraintSystem(field, "scs")
     cs.secret_names = [f"x{i}" for i in range(n_chains)]
     for c in range(n_chains):
         w = 1 + c
@@ -81,6 +86,16 @@ def plonk_square_chain(n_chains: int, chain_len: int) -> ConstraintSystem:
                             outputs=(o,)), [w])
             w = o
     return cs
+
+
+class Cubic(Circuit):
+    """examples/cubic.py's circuit: x^3 + x + 5 == y."""
+    x: Secret
+    y: Public
+
+    def define(self, api):
+        x3 = api.mul(self.x, self.x, self.x)
+        api.assert_is_equal(api.add(x3, self.x, 5), self.y)
 
 
 class MimcPreimage(Circuit):
@@ -180,10 +195,28 @@ def _known_sum(vals, offset, q):
     return s % q
 
 
-def check_prove(cs, pk, public, secret, rng) -> None:
+def setup_logs(cs, s: dict) -> dict:
+    """The discrete logs of the key columns that groth16.setup made from
+    the scalars s (groth16.setup_scalars under the same seed): column
+    name -> (logs, offset 0), check_prove's `logs`."""
+    nw, npub, N = cs.nb_wires, cs.nb_public, s["N"]
+    o_z = 3 + 2 * nw
+    o_vk = o_z + N
+    g1 = s["g1"]
+    return {"g1_a": g1[3:3 + nw], "g1_b": g1[3 + nw:3 + 2 * nw],
+            "g1_z": g1[o_z:o_z + N], "g1_k": g1[o_vk + npub:o_vk + nw],
+            "g2_b": s["g2"][3:3 + nw]}
+
+
+def _log_sum(vals, logs, q):
+    return sum(k * v for k, v in zip(logs, vals)) % q
+
+
+def check_prove(cs, pk, public, secret, rng, logs=None) -> None:
     """Run prove's own stage functions on the solver's output for
     (public, secret) and check the five MSMs against their known-log
-    values and H by Schwartz-Zippel. Raises CheckError."""
+    values (logs: a key's column logs, setup_logs; None: the known-log
+    key's) and H by Schwartz-Zippel. Raises CheckError."""
     curve = pk.curve
     q = curve.fr.modulus
     N = pk.domain_n
@@ -205,14 +238,17 @@ def check_prove(cs, pk, public, secret, rng) -> None:
     hv = [int(v) for v in fr.decode_words(h.cpu(), mont=False)]
     f1, f2 = curve.host_fp, curve.host_g2_field
     nb_pub = cs.nb_public
+
+    def ksum(vals, col):
+        return _known_sum(vals, OFFSETS[col], q) if logs is None else \
+            _log_sum(vals, logs[col], q)
+
     want = {
-        "Ar": (ar, f1, curve.g1, _known_sum(vals, OFFSETS["g1_a"], q)),
-        "Bs1": (bs1, f1, curve.g1, _known_sum(vals, OFFSETS["g1_b"], q)),
-        "Krs2": (krs2, f1, curve.g1,
-                 _known_sum(hv[:N - 1], OFFSETS["g1_z"], q)),
-        "Krs": (krs, f1, curve.g1,
-                _known_sum(vals[nb_pub:], OFFSETS["g1_k"], q)),
-        "Bs2": (bs2, f2, curve.g2, _known_sum(vals, OFFSETS["g2_b"], q)),
+        "Ar": (ar, f1, curve.g1, ksum(vals, "g1_a")),
+        "Bs1": (bs1, f1, curve.g1, ksum(vals, "g1_b")),
+        "Krs2": (krs2, f1, curve.g1, ksum(hv[:N - 1], "g1_z")),
+        "Krs": (krs, f1, curve.g1, ksum(vals[nb_pub:], "g1_k")),
+        "Bs2": (bs2, f2, curve.g2, ksum(vals, "g2_b")),
     }
     for name, (got, f, g, k) in want.items():
         if got != host.ec_mul(f, g, k):

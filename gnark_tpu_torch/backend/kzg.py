@@ -21,7 +21,7 @@ import dataclasses
 
 from gnark_tpu_torch.backend.groth16 import (_encode_affine_host, _mark_fn,
                                              _msm_affine_host, _scalar_words)
-from gnark_tpu_torch.cuda import resolve_device
+from gnark_tpu_torch.cuda import check_curve, resolve_device
 from gnark_tpu_torch.ec import curves as curves_mod
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ff import get_ff
@@ -58,18 +58,19 @@ def setup_srs(curve_name: str, size: int, tau: int | None = None,
     import secrets
     curve = curves_mod.CURVES[curve_name]
     dev = resolve_device(device)
+    check_curve(curve, dev)
     mark = _mark_fn(timings, dev, get_logger("gnark_tpu_torch"), "srs")
     q = curve.fr.modulus
     if tau is None:
         tau = (rng.randrange(q) if rng else secrets.randbelow(q)) or 1
-    ffp = get_ff(curve.fp.name)
+    ffp, ffr = get_ff(curve.fp.name), get_ff(curve.fr.name)
     powers = []
     acc = 1
     for _ in range(size):
         powers.append(acc)
         acc = acc * tau % q
     base = _encode_affine_host(ffp, [curve.g1], dev)[:2]
-    sc = _scalar_words(powers, ffp.nw, dev)
+    sc = _scalar_words(powers, ffr.nw, dev)
     mark("powers")
     R = batch_scalar_mul(ffp, base, curve.fr.bits, sc)
     mark("ladder")

@@ -1,5 +1,6 @@
-"""PLONK on the card (BN254): Setup / Prove / Verify, KZG-based, with
-BSB22 commitments through Qcp columns.
+"""PLONK on the card (BN254, BLS12-381; the other curves on the CPU):
+Setup / Prove / Verify, KZG-based, with BSB22 commitments through Qcp
+columns.
 
 Counterpart of gnark_tpu.backend.plonk (reference
 backend/plonk/bn254/{setup,prove,verify}.go):
@@ -247,9 +248,10 @@ def keys_from_arrays(d: dict, curve: str = "bn254", device=None):
       ql, qr, qm, qo, qk, ql_coeffs .. s3_coeffs, s1_vals .. s3_vals:
         limb arrays; perm: 3N ints; qcp_coeffs: a list of limb arrays."""
     from gnark_tpu_torch.backend import plonk_device as pdev
-    from gnark_tpu_torch.cuda import resolve_device
+    from gnark_tpu_torch.cuda import check_curve, resolve_device
     dev = resolve_device(device)
     c = curves_mod.CURVES[curve]
+    check_curve(c, dev)
 
     def words(a):
         return torch.as_tensor(_words_from_limbs(a), device=dev)

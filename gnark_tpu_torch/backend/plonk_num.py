@@ -156,8 +156,8 @@ def _check(ff: FF, cols, pts: NumPoints):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    return cuda.bind("plonk_num", "gt_plonk_numerator", 3,
+def _fn(field):
+    return cuda.bind("plonk_num", field, "gt_plonk_numerator", 3,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -189,8 +189,9 @@ def _numerator_card(ff: FF, cols, pts: NumPoints, s):
                               s["alpha2"] * s["Ninv"], *pts.zhi])
     ptrs = (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     out = torch.empty_like(ts[0])
-    rc = _fn()(ctypes.addressof(ptrs), out.data_ptr(), consts.ctypes.data,
-               out.shape[0], pts.period,
-               cuda.field_consts(ff.p.name).ctypes.data, cuda.stream(out))
+    fn = _fn(ff.p.name)
+    rc = fn(ctypes.addressof(ptrs), out.data_ptr(), consts.ctypes.data,
+            out.shape[0], pts.period,
+            cuda.field_consts(ff.p.name).ctypes.data, cuda.stream(out))
     cuda.check(rc, "plonk_numerator")
     return out

@@ -36,6 +36,13 @@
 // The order of the pairs inside a bucket is that of the atomics, so the
 // projective representative of a bucket sum may differ from run to run;
 // the group element does not.
+//
+// A 12-word build takes the Fp products as called functions
+// (GT_NOINLINE): nvcc 12.9's front end (cicc) crashes on this source's
+// formulas inlined at that width.
+#if GT_NW > 8 && !defined(GT_NOINLINE)
+#define GT_NOINLINE 1
+#endif
 #include "fp2s.cuh"
 #include "proj.cuh"
 
@@ -46,16 +53,16 @@ __device__ __noinline__ Proj<E> add_call(const Proj<E>& acc,
   return proj_add(acc, part, b3, F);
 }
 
-// signed c-bit digits of n plain scalars (8 words each) into (W, n):
+// signed c-bit digits of n plain scalars (GT_SW words each) into (W, n):
 // window t plus the carry; t >= 2^(c-1) gives t - 2^c and carry 1.
 __global__ void digits_kernel(const uint32_t* __restrict__ sc, long long n,
                               int c, int W0, int W, int32_t* digits) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t s[GT_NW + 1];
+  uint32_t s[GT_SW + 1];
 #pragma unroll
-  for (int k = 0; k < GT_NW; ++k) s[k] = sc[i * GT_NW + k];
-  s[GT_NW] = 0;
+  for (int k = 0; k < GT_SW; ++k) s[k] = sc[i * GT_SW + k];
+  s[GT_SW] = 0;
   const int half = 1 << (c - 1);
   const uint32_t mask = (1u << c) - 1;
   int carry = 0;

@@ -1,5 +1,6 @@
 // K10-K13, the field operations of the PLONK prover over word vectors
-// (n rows of 8 words, Montgomery form), canonical outputs:
+// (n rows of GT_NW (8) words, Montgomery form; another tile's values are
+// read with mont.cuh's ld_cg, from L2), canonical outputs:
 //
 //   gt_ff_addsub   K10  out = a +- b[i or 0]
 //   gt_batch_inv   K11  out = 1 / a (0 -> 0), Montgomery's trick
@@ -322,15 +323,6 @@ __device__ __forceinline__ void fence_acquire() {
 __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
-}
-
-// from L2: another tile's value, written once, after this SM may have
-// cached its neighbours' line
-__device__ __forceinline__ void ld_cg(Fp& r, const uint32_t* g) {
-  const uint4* q = reinterpret_cast<const uint4*>(g);
-  const uint4 u = __ldcg(q), v = __ldcg(q + 1);
-  r.w[0] = u.x; r.w[1] = u.y; r.w[2] = u.z; r.w[3] = u.w;
-  r.w[4] = v.x; r.w[5] = v.y; r.w[6] = v.z; r.w[7] = v.w;
 }
 
 __device__ __forceinline__ void publish(uint32_t* val, int* flag,

@@ -144,13 +144,6 @@ __device__ __forceinline__ void as_elem(Fp2s& r, const Fp2& h) {
 }
 
 // this lane's component, past L1 (rows that other blocks wrote)
-__device__ __forceinline__ void ld_cg(Fp& r, const uint32_t* g) {
-  const uint4* q = reinterpret_cast<const uint4*>(g);
-  uint4 u = __ldcg(q), v = __ldcg(q + 1);
-  r.w[0] = u.x; r.w[1] = u.y; r.w[2] = u.z; r.w[3] = u.w;
-  r.w[4] = v.x; r.w[5] = v.y; r.w[6] = v.z; r.w[7] = v.w;
-}
-
 __device__ __forceinline__ void ld_cg(Fp2s& r, const uint32_t* g) {
   ld_cg(r.v, g + lane_half() * GT_NW);
 }

@@ -35,6 +35,12 @@
 // threads, so each thread holds G1-sized state; the mask and the
 // affine operand are read per point. K8 and jac_fold run G2 the same way
 // (the one-thread Fp2 reached 255 registers and spilled).
+// A 12-word build (off the main path: the scan path, K3) takes the Fp
+// products as called functions (GT_NOINLINE): inlined, its nvcc build
+// took ~290 s, the longest of all.
+#if GT_NW > 8 && !defined(GT_NOINLINE)
+#define GT_NOINLINE 1
+#endif
 #include "jac.cuh"
 
 // E: Fp (G1), or Fp2s (G2, Row<E>::lanes threads a point)

@@ -24,10 +24,19 @@
 // argument; squarings take sqr_lazy (G1: each cross product once; G2:
 // one product a lane). Both groups are held to 168 registers a thread,
 // so three blocks share an SM (G2 at the cost of a few spills).
+// A 12-word build takes the Fp products as called functions
+// (GT_NOINLINE), as jac_ec.cu's 12-word K6 and K7 do: inlined, its body
+// ran slower than the per-bit K7 + K6 launches it fuses; called, it is
+// faster than them, at 2 blocks an SM (3 or 4, with more spills, are
+// slower).
+#if GT_NW > 8 && !defined(GT_NOINLINE)
+#define GT_NOINLINE 1
+#endif
 #include "jac.cuh"
 
 static const int T = 128;
-static const int MIN_BLOCKS = 3;   // G2 unbounded: 255 registers, 2 blocks
+// 8 words: G2 unbounded: 255 registers, 2 blocks; 12 words: 2 blocks
+static const int MIN_BLOCKS = GT_NW == 8 ? 3 : 2;
 
 // E: Fp (G1), or Fp2s (G2, Row<E>::lanes threads a scalar); H the host
 // type of the base's coordinates
@@ -45,7 +54,7 @@ __global__ void __launch_bounds__(T, MIN_BLOCKS)
   Jac<E> R;
   jac_infinity(R, F);
   for (int k = (nbits - 1) >> 5; k >= 0; --k) {
-    const uint32_t w = sc[i * GT_NW + k];
+    const uint32_t w = sc[i * GT_SW + k];
     for (int j = min(31, nbits - 1 - 32 * k); j >= 0; --j) {
       R = jac_dbl(R, F);
       R = jac_madd(R, bx, by, ((w >> j) & 1) == 0, F);
@@ -54,14 +63,14 @@ __global__ void __launch_bounds__(T, MIN_BLOCKS)
   st_jac_canon(ox, oy, oz, i, R, F);
 }
 
-// sc: n scalars of GT_NW words, plain integers; bx, by: the base's
+// sc: n scalars of GT_SW words, plain integers; bx, by: the base's
 // affine coordinates on the host (GT_NW words, 2 GT_NW for Fp2),
-// Montgomery, < 2p; 0 <= nbits <= 32 GT_NW.
+// Montgomery, < 2p; 0 <= nbits <= 32 GT_SW.
 extern "C" int gt_ladder(const void* sc, const void* bx, const void* by,
                          void* ox, void* oy, void* oz, long long n,
                          int nbits, int fp2, const void* consts,
                          void* stream) {
-  if (nbits < 0 || nbits > 32 * GT_NW) return (int)cudaErrorInvalidValue;
+  if (nbits < 0 || nbits > 32 * GT_SW) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   FieldC F = field_from_host((const uint32_t*)consts);
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,15 +1,18 @@
-// Montgomery arithmetic over 8 x 32-bit words, for the BN254 base and
-// scalar fields (254-bit moduli), and its Fp2 lift (u^2 = -1).
+// Montgomery arithmetic over GT_NW x 32-bit words (set by the build: 8
+// for the BN254 fields and BLS12-381's scalar field, 12 for BLS12-381's
+// base field), and its Fp2 lift (u^2 = -1).
 //
 // Counterpart of gnark_tpu/ff/pallas_mont.py (TFF) and
 // gnark_tpu/ff/pallas_fp2.py (TFF2). Not a kernel: device functions that
 // the kernels of this directory compose.
 //
-// R = 2^256, the same radix as sixteen 16-bit limbs, so Montgomery
-// values are bit-identical with the reference's. The product is CIOS
-// with 64-bit accumulators (one 32 x 32 -> 64 multiply-add per word
-// pair). The lazy class of the reference is kept exactly:
-//   mul_lazy      in < 2p, out < 2p  (no final subtract; needs 4p < R)
+// R = 2^(32 GT_NW), the same radix as 2 GT_NW 16-bit limbs, so
+// Montgomery values are bit-identical with the reference's. The product
+// is CIOS with 64-bit accumulators (one 32 x 32 -> 64 multiply-add per
+// word pair). Two classes, chosen by the build (GT_SOUND):
+//
+// The lazy class (GT_SOUND 0) of the reference, for 4p < R:
+//   mul_lazy      in < 2p, out < 2p  (no final subtract)
 //   sqr_lazy      a * a, in < 2p, out < 2p: the same value as mul_lazy
 //                 (Fp: each cross product once; fp2s.cuh: one product a
 //                 lane)
@@ -18,8 +21,20 @@
 //   canon         < 3p -> [0, p) with two conditional p subtracts
 //   fermat_inv    z^(p-2), in < 2p, out < 2p
 //   by_inv        1 / z by Bernstein-Yang divsteps, in < 2p (not 0 mod
-//                 p), out < 2p: one thread's short-latency inverse
+//                 p), out < 2p: one thread's short-latency inverse (8
+//                 words only)
 //   is_zero_lazy  a < 2p is 0 mod p
+// The sound class (GT_SOUND 1), for 4p >= R > 2p (BLS12-381's scalar
+// field: 4r ~ 1.81 R, so a product of two operands < 2p reaches ~2.81 r,
+// past R): the same functions, each taking values < 2p and returning
+// them < p, so a kernel written for the lazy class stays right:
+//   mul_lazy      the full CIOS result (< 2.81 p, its top word kept),
+//                 two conditional p subtracts
+//   sqr_lazy      mul_lazy(a, a) (the one-pass square drops a carry)
+//   sop2 / sop4   the a (sop2) or all (sop4) operands brought below p
+//                 first, then two conditional p subtracts
+//   add2p, sub2p  a conditional 2p, then a p subtract (the sum's carry
+//                 kept); neg2p two conditional p subtracts
 // Field constants come in a FieldC passed by value as a kernel argument;
 // n0 is -p^-1 mod 2^32 (not the reference's 16-bit constant); r3 is
 // R^3 mod p (by_inv's return to Montgomery form).
@@ -28,7 +43,23 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define GT_NW 8
+#ifndef GT_NW
+#define GT_NW 8        // words of a field element
+#endif
+#define GT_SW 8        // words of a scalar (the point kernels' scalars)
+#ifndef GT_SOUND
+#define GT_SOUND 0     // 1: the sound class (4p >= R)
+#endif
+#ifndef GT_NOINLINE
+#define GT_NOINLINE 0  // 1: the Fp products as called functions
+#endif
+static_assert(GT_NW % 4 == 0, "an element is whole 16-byte vectors");
+
+#if GT_NOINLINE
+#define GT_PRODUCT __device__ __noinline__
+#else
+#define GT_PRODUCT __device__ __forceinline__
+#endif
 
 struct FieldC {
   uint32_t p[GT_NW];
@@ -38,8 +69,8 @@ struct FieldC {
   uint32_t r3[GT_NW];
 };
 
-// Host: constants laid out as p | 2p | R mod p | n0 | R^3 mod p (33
-// words; cuda.field_consts).
+// Host: constants laid out as p | 2p | R mod p | n0 | R^3 mod p (4 GT_NW
+// + 1 words; cuda.field_consts).
 static inline FieldC field_from_host(const uint32_t* c) {
   FieldC f;
   for (int i = 0; i < GT_NW; ++i) {
@@ -82,20 +113,37 @@ static inline Fp2 fp2_from_host(const uint32_t* c) {
 }
 
 // ---------------------------------------------------------------------
-// global / shared memory access (an element is 32 contiguous bytes)
+// global / shared memory access (an element is 4 GT_NW contiguous bytes,
+// GT_NW / 4 16-byte vectors)
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ void ld(Fp& r, const uint32_t* g) {
   const uint4* q = reinterpret_cast<const uint4*>(g);
-  uint4 u = q[0], v = q[1];
-  r.w[0] = u.x; r.w[1] = u.y; r.w[2] = u.z; r.w[3] = u.w;
-  r.w[4] = v.x; r.w[5] = v.y; r.w[6] = v.z; r.w[7] = v.w;
+#pragma unroll
+  for (int k = 0; k < GT_NW / 4; ++k) {
+    const uint4 u = q[k];
+    r.w[4 * k] = u.x; r.w[4 * k + 1] = u.y;
+    r.w[4 * k + 2] = u.z; r.w[4 * k + 3] = u.w;
+  }
 }
 
 __device__ __forceinline__ void st(uint32_t* g, const Fp& a) {
   uint4* q = reinterpret_cast<uint4*>(g);
-  q[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
-  q[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+#pragma unroll
+  for (int k = 0; k < GT_NW / 4; ++k)
+    q[k] = make_uint4(a.w[4 * k], a.w[4 * k + 1], a.w[4 * k + 2],
+                      a.w[4 * k + 3]);
+}
+
+// from L2, past L1 (rows that other blocks wrote)
+__device__ __forceinline__ void ld_cg(Fp& r, const uint32_t* g) {
+  const uint4* q = reinterpret_cast<const uint4*>(g);
+#pragma unroll
+  for (int k = 0; k < GT_NW / 4; ++k) {
+    const uint4 u = __ldcg(q + k);
+    r.w[4 * k] = u.x; r.w[4 * k + 1] = u.y;
+    r.w[4 * k + 2] = u.z; r.w[4 * k + 3] = u.w;
+  }
 }
 
 __device__ __forceinline__ void ld(Fp2& r, const uint32_t* g) {
@@ -205,14 +253,32 @@ __device__ __forceinline__ void cios(uint32_t* out, uint32_t& top,
 }
 
 // ---------------------------------------------------------------------
-// Fp, lazy class
+// Fp
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ Fp mul_lazy(const Fp& a, const Fp& b,
+// a < 2p -> a < p (the sound class's operand reduction)
+__device__ __forceinline__ Fp red1(const Fp& a, const FieldC& F) {
+  Fp r = a;
+  uint32_t top = 0;
+  cond_sub(r.w, top, F.p);
+  return r;
+}
+
+// (top:w) < 3p -> [0, p)
+__device__ __forceinline__ void sub_p_twice(uint32_t* w, uint32_t& top,
+                                            const FieldC& F) {
+  cond_sub(w, top, F.p);
+  cond_sub(w, top, F.p);
+}
+
+GT_PRODUCT Fp mul_lazy(const Fp& a, const Fp& b,
                                        const FieldC& F) {
   Fp r;
   uint32_t top;
   cios<1>(r.w, top, &a, &b, F);
+#if GT_SOUND
+  sub_p_twice(r.w, top, F);     // < (4p^2 + R p) / R < 3p, as 2p < R
+#endif
   return r;
 }
 
@@ -220,8 +286,12 @@ __device__ __forceinline__ Fp mul_lazy(const Fp& a, const Fp& b,
 // i < j, once, doubled, plus the 8 squares, then 8 reduction rows; 100
 // word products and 8 for the m words, against mul_lazy's 128 and 8.
 // The same value as mul_lazy(a, a): m = -a^2 p^-1 mod R is unique.
-// a < 2p < 2^255, so a^2 and a^2 + m p fit 16 words (no carry out).
-__device__ __forceinline__ Fp sqr_lazy(const Fp& a, const FieldC& F) {
+// a < 2p and 4p < R, so a^2 and a^2 + m p fit 2 GT_NW words (no carry
+// out); the sound class takes the product.
+GT_PRODUCT Fp sqr_lazy(const Fp& a, const FieldC& F) {
+#if GT_SOUND
+  return mul_lazy(a, a, F);
+#else
   uint32_t t[2 * GT_NW];
 #pragma unroll
   for (int i = 0; i < 2 * GT_NW; ++i) t[i] = 0;
@@ -269,12 +339,14 @@ __device__ __forceinline__ Fp sqr_lazy(const Fp& a, const FieldC& F) {
 #pragma unroll
   for (int i = 0; i < GT_NW; ++i) r.w[i] = t[GT_NW + i];
   return r;
+#endif
 }
 
 // z^(p-2) by square-and-multiply over the exponent's bits, most
 // significant first (the reference's FF.inv; 0 -> 0); in < 2p, out < 2p.
 // The exponent comes from F.p, so the branch is the same in every thread.
-// For BN254 (either field): 253 squarings (sqr_lazy) and 109 products.
+// For BN254 (either field): 253 squarings (sqr_lazy) and 109 products;
+// for BLS12-381's base field 380 and 228.
 __device__ __forceinline__ Fp fermat_inv(const Fp& z, const FieldC& F) {
   uint32_t e[GT_NW];
   uint32_t two[GT_NW] = {2};
@@ -298,28 +370,46 @@ __device__ __forceinline__ Fp fermat_inv(const Fp& z, const FieldC& F) {
   return r;
 }
 
-__device__ __forceinline__ Fp sop2(const Fp& a1, const Fp& b1, const Fp& a2,
+GT_PRODUCT Fp sop2(const Fp& a1, const Fp& b1, const Fp& a2,
                                    const Fp& b2, const FieldC& F) {
+#if GT_SOUND
+  Fp a[2] = {red1(a1, F), red1(a2, F)};      // (2 p 2p + R p) / R < 3p
+#else
   Fp a[2] = {a1, a2};
+#endif
   Fp b[2] = {b1, b2};
   Fp r;
   uint32_t top;
   cios<2>(r.w, top, a, b, F);
+#if GT_SOUND
+  sub_p_twice(r.w, top, F);
+#else
   cond_sub(r.w, top, F.p2);
+#endif
   return r;
 }
 
-__device__ __forceinline__ Fp sop4(const Fp& a1, const Fp& b1, const Fp& a2,
+GT_PRODUCT Fp sop4(const Fp& a1, const Fp& b1, const Fp& a2,
                                    const Fp& b2, const Fp& a3, const Fp& b3,
                                    const Fp& a4, const Fp& b4,
                                    const FieldC& F) {
+#if GT_SOUND
+  // every operand < p: (4 p^2 + R p) / R < 3p
+  Fp a[4] = {red1(a1, F), red1(a2, F), red1(a3, F), red1(a4, F)};
+  Fp b[4] = {red1(b1, F), red1(b2, F), red1(b3, F), red1(b4, F)};
+#else
   Fp a[4] = {a1, a2, a3, a4};
   Fp b[4] = {b1, b2, b3, b4};
+#endif
   Fp r;
   uint32_t top;
   cios<4>(r.w, top, a, b, F);
+#if GT_SOUND
+  sub_p_twice(r.w, top, F);
+#else
   cond_sub(r.w, top, F.p2);
   cond_sub(r.w, top, F.p2);
+#endif
   return r;
 }
 
@@ -328,21 +418,31 @@ __device__ __forceinline__ Fp add2p(const Fp& a, const Fp& b,
   Fp r;
   uint32_t top = add_words(r.w, a.w, b.w);
   cond_sub(r.w, top, F.p2);
+#if GT_SOUND
+  cond_sub(r.w, top, F.p);
+#endif
   return r;
 }
 
 __device__ __forceinline__ Fp sub2p(const Fp& a, const Fp& b,
                                     const FieldC& F) {
   Fp r;
-  uint32_t top = add_words(r.w, a.w, F.p2);      // a + 2p < 4p < R
+  uint32_t top = add_words(r.w, a.w, F.p2);      // a + 2p < 4p (top kept)
   top -= sub_words(r.w, r.w, b.w);               // >= 0 since b < 2p
   cond_sub(r.w, top, F.p2);
+#if GT_SOUND
+  cond_sub(r.w, top, F.p);
+#endif
   return r;
 }
 
 __device__ __forceinline__ Fp neg2p(const Fp& a, const FieldC& F) {
   Fp r;
   sub_words(r.w, F.p2, a.w);
+#if GT_SOUND
+  uint32_t top = 0;
+  sub_p_twice(r.w, top, F);
+#endif
   return r;
 }
 
@@ -377,6 +477,7 @@ __device__ __forceinline__ void set_one(Fp& r, const FieldC& F) {
   for (int i = 0; i < GT_NW; ++i) r.w[i] = F.one[i];
 }
 
+#if GT_NW == 8
 // ---------------------------------------------------------------------
 // 1 / z by Bernstein and Yang's safegcd ("Fast constant-time gcd
 // computation and modular inversion", 2019) in the form of
@@ -398,7 +499,7 @@ struct S30 {
   int32_t v[GT_S30];
 };
 
-// 8 words (< 2^256) -> 9 limbs of 30 bits
+// GT_NW words (< 2^256) -> 9 limbs of 30 bits
 __device__ __forceinline__ S30 s30_of(const uint32_t* w) {
   S30 r;
 #pragma unroll
@@ -411,7 +512,7 @@ __device__ __forceinline__ S30 s30_of(const uint32_t* w) {
   return r;
 }
 
-// 9 limbs in [0, 2^30) -> 8 words
+// 9 limbs in [0, 2^30) -> GT_NW words
 __device__ __forceinline__ Fp words_of(const S30& a) {
   Fp r;
 #pragma unroll
@@ -556,9 +657,18 @@ __device__ __forceinline__ Fp by_inv(const Fp& z, const FieldC& F) {
   for (int i = 0; i < GT_NW; ++i) r3.w[i] = F.r3[i];
   return mul_lazy(words_of(d), r3, F);
 }
+#else
+// by_inv is sized for moduli below 2^256: a wider build refuses a call
+template <int N = GT_NW>
+__device__ Fp by_inv(const Fp& z, const FieldC& F) {
+  static_assert(N == 8, "by_inv takes 8-word fields only");
+  return z;
+}
+#endif
 
 // ---------------------------------------------------------------------
-// Fp2 = Fp[u]/(u^2 + 1), lazy class per component (TFF2 with |nr| = 1)
+// Fp2 = Fp[u]/(u^2 + 1), per component in the class of Fp (TFF2 with
+// |nr| = 1)
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ Fp2 mul_lazy(const Fp2& a, const Fp2& c,

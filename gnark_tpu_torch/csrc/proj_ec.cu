@@ -13,6 +13,11 @@
 // whole formula in registers; the Fp2 instantiation spills (see the
 // ptxas report of the build). Batching the Horner ladder into one
 // launch is later work.
+// A 12-word build (K3: off every path) takes the Fp products as called
+// functions (GT_NOINLINE), a shorter build.
+#if GT_NW > 8 && !defined(GT_NOINLINE)
+#define GT_NOINLINE 1
+#endif
 #include "proj.cuh"
 
 template <class E>

@@ -3,9 +3,13 @@
 Each source csrc/<name>.cu is compiled by nvcc, alone, into a shared
 library with a plain C interface under gnark_tpu_torch/_build/ (named by
 a hash of the sources and flags, so a stale build is never reused), and
-loaded with ctypes. Nothing is built when a module is imported: the first
-launch of a kernel builds its library, and `build_all` builds all of them
-at once, one nvcc process per source, started together.
+loaded with ctypes. A source is built once for each variant its fields
+need: the element's word count (GT_NW) and the arithmetic class
+(GT_SOUND) of csrc/mont.cuh, each variant a library of its own name
+(scalars are GT_SW = 8 words in every build). Nothing is built when a
+module is imported: the first launch of a kernel builds its library, and
+`start_builds` / `finish_builds` build all of them at once, one nvcc
+process per source and variant, started together.
 
 Every C entry point takes data pointers and the current stream and
 returns cudaGetLastError(); `check` raises on a non-zero code.
@@ -21,6 +25,7 @@ import pathlib
 import shutil
 import subprocess
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,8 +38,69 @@ HEADERS = ("mont.cuh", "proj.cuh", "jac.cuh", "fp2s.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Fields the kernels take: 254-bit moduli in 8 words, Fp2 with u^2 = -1.
-KERNEL_FIELDS = ("bn254_fp", "bn254_fr")
+
+class KernelField(NamedTuple):
+    """How the kernels take a field: nw 32-bit words an element; sound,
+    the class of csrc/mont.cuh (lazy: values < 2p, which needs 4p < R =
+    2^(32 nw); sound, for 4p >= R: every operation takes values < 2p and
+    gives them < p); base, a curve's base field (the point kernels) or
+    else a scalar field (the field kernels); nr, u^2 of the curve's Fp2
+    (base fields)."""
+    nw: int
+    sound: bool
+    base: bool
+    nr: int | None = None
+
+
+# Fields the kernels take. BLS12-377 (nr = -5) and BW6-761 (24-word Fp,
+# G2 over Fp) are not among them.
+KERNEL_FIELDS = {
+    "bn254_fp": KernelField(nw=8, sound=False, base=True, nr=-1),
+    "bn254_fr": KernelField(nw=8, sound=False, base=False),
+    "bls12_381_fp": KernelField(nw=12, sound=False, base=True, nr=-1),
+    "bls12_381_fr": KernelField(nw=8, sound=True, base=False),
+}
+# The sources a base field's (points) and a scalar field's kernels need.
+BASE_SOURCES = ("mont_mul", "proj_ec", "bucket_msm", "jac_ec",
+                "bucket_reduce", "ladder")
+SCALAR_SOURCES = ("mont_mul", "row_fft", "butterfly", "ff_ops", "plonk_num")
+
+
+class Variant(NamedTuple):
+    """One build of a source: GT_NW and GT_SOUND."""
+    nw: int
+    sound: bool
+
+    @property
+    def tag(self) -> str:
+        return f"w{self.nw}" + ("-sound" if self.sound else "")
+
+    @property
+    def flags(self) -> tuple:
+        return (f"-DGT_NW={self.nw}", f"-DGT_SOUND={int(self.sound)}")
+
+
+def kernel_field(name: str) -> KernelField:
+    kf = KERNEL_FIELDS.get(name)
+    if kf is None:
+        raise ValueError(f"no CUDA kernel for field {name} (the kernels "
+                         f"take {', '.join(KERNEL_FIELDS)})")
+    return kf
+
+
+def variant(field: str) -> Variant:
+    kf = kernel_field(field)
+    return Variant(kf.nw, kf.sound)
+
+
+def builds(fields=None) -> list:
+    """(source, Variant) of every library the fields' kernels use, each
+    once (BN254's two fields share one build of each source)."""
+    out = []
+    for f in (KERNEL_FIELDS if fields is None else fields):
+        srcs = BASE_SOURCES if kernel_field(f).base else SCALAR_SOURCES
+        out += [(s, variant(f)) for s in srcs]
+    return list(dict.fromkeys(out))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,6 +118,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_curve(curve, device: torch.device) -> None:
+    """On the card, raise unless the kernels take both fields of curve
+    (and its Fp2's u^2); no path falls back to the CPU."""
+    if device.type != "cuda":
+        return
+    nr = kernel_field(curve.fp.name).nr
+    kernel_field(curve.fr.name)
+    if curve.g2 is not None and (curve.fp2_nr - nr) % curve.fp.modulus:
+        raise ValueError(f"no CUDA kernel for {curve.name}'s G2 (the "
+                         f"kernels take Fp2 with u^2 = {nr})")
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -59,65 +137,108 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _target(name: str, v: Variant) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + v.flags).encode())
     for f in (f"{name}.cu",) + HEADERS:
         h.update((CSRC / f).read_bytes())
-    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD / f"{name}.{v.tag}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    so = _target(name)
+def _start(name: str, v: Variant, nice: int = 0):
+    so = _target(name, v)
     if so.exists():
         return so, None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return so, (proc, tmp)
+    cmd = [_nvcc(), *NVCC_FLAGS, *v.flags, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    log = open(tmp.with_suffix(".log"), "w+")   # a pipe could fill and stall
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True,
+                            preexec_fn=(lambda: os.nice(nice)) if nice
+                            else None)
+    return so, (proc, tmp, log)
 
 
 def _finish(name: str, so, job) -> str:
     if job is None:
         return ""
-    proc, tmp = job
-    out, _ = proc.communicate()
+    proc, tmp, log = job
+    proc.wait()
+    log.seek(0)
+    out = log.read()
+    log.close()
+    os.remove(log.name)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise RuntimeError(f"nvcc failed for {name}:\n{out}")
     os.replace(tmp, so)
     return out
 
 
-def build_all(names=SOURCES) -> dict:
-    """Build every kernel library in parallel. Returns name ->
-    (seconds, nvcc/ptxas log); a library already built reports 0 s."""
-    t0 = time.perf_counter()
-    jobs = {n: _start(n) for n in names}
+def start_builds(pairs=None, nice: int = 0) -> dict:
+    """Start nvcc for every library of `builds()` (or the given (source,
+    Variant) pairs) not built yet, all at once (nice: their priority,
+    so that builds wanted first can be started beside them at a higher
+    one). Returns the jobs for finish_builds."""
+    return {"t0": time.time(),
+            "jobs": {(n, v): _start(n, v, nice)
+                     for n, v in (pairs or builds())}}
+
+
+def finish_builds(started: dict) -> dict:
+    """Wait for started builds. Returns "source.tag" -> (seconds from
+    their start to the end of nvcc's output, nvcc/ptxas log); a library
+    already built reports 0 s. Raises if any build failed."""
+    jobs, t0 = dict(started["jobs"]), started["t0"]
     res, errors = {}, []
-    for n, (so, job) in jobs.items():
-        try:
-            log = _finish(n, so, job)
-        except RuntimeError as e:
-            errors.append(str(e))
-            continue
-        res[n] = (time.perf_counter() - t0 if job else 0.0, log)
+    while jobs:
+        done = [k for k, (so, job) in jobs.items()
+                if job is None or job[0].poll() is not None]
+        if not done:
+            time.sleep(0.1)
+        for n, v in done:
+            so, job = jobs.pop((n, v))
+            key = f"{n}.{v.tag}"
+            try:
+                sec = os.path.getmtime(job[2].name) - t0 if job else 0.0
+                log = _finish(key, so, job)
+            except (RuntimeError, OSError) as e:
+                errors.append(str(e))
+                continue
+            res[key] = (sec, log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return res
 
 
+def stop_builds(started: dict) -> None:
+    """End the started builds that are still running (a run that stops
+    early leaves no nvcc behind)."""
+    for so, job in started["jobs"].values():
+        if job is not None and job[0].poll() is None:
+            job[0].kill()
+            job[0].wait()
+        if job is not None and not job[2].closed:
+            job[2].close()
+
+
 @functools.lru_cache(maxsize=None)
-def lib(name: str) -> ctypes.CDLL:
-    so, job = _start(name)
-    _finish(name, so, job)
+def _lib(name: str, v: Variant) -> ctypes.CDLL:
+    so, job = _start(name, v)
+    _finish(f"{name}.{v.tag}", so, job)
     return ctypes.CDLL(str(so))
 
 
-def bind(name: str, fn: str, nptr: int, rest=()):
-    """ctypes function `fn` of library `name`: nptr pointer arguments,
-    then the ctypes types in `rest`, then the stream; returns int."""
-    f = getattr(lib(name), fn)
+def lib(name: str, field: str) -> ctypes.CDLL:
+    """Library `name` as built for `field`'s kernels."""
+    return _lib(name, variant(field))
+
+
+def bind(name: str, field: str, fn: str, nptr: int, rest=()):
+    """ctypes function `fn` of library `name` built for `field`: nptr
+    pointer arguments, then the ctypes types in `rest`, then the stream;
+    returns int."""
+    f = getattr(lib(name, field), fn)
     f.argtypes = [ctypes.c_void_p] * nptr + list(rest) + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
@@ -134,18 +255,19 @@ def stream(t: torch.Tensor) -> int:
 
 @functools.lru_cache(maxsize=None)
 def field_consts(name: str) -> np.ndarray:
-    """Kernel constants of a field: p, 2p and R mod p in 8 words each,
+    """Kernel constants of a field: p, 2p and R mod p in nw words each,
     then -p^-1 mod 2^32 (the 32-bit REDC constant; FieldParams.n0inv is
-    the 16-bit one), then R^3 mod p in 8 words (csrc/mont.cuh by_inv's
-    return to Montgomery form): 33 words, FieldC's layout."""
-    if name not in KERNEL_FIELDS:
-        raise ValueError(f"no CUDA kernel for field {name}")
+    the 16-bit one), then R^3 mod p in nw words (csrc/mont.cuh by_inv's
+    return to Montgomery form): 4 nw + 1 words, FieldC's layout."""
+    nw = kernel_field(name).nw
     from gnark_tpu_torch.fields import FIELDS
     par = FIELDS[name]
     p = par.modulus
+    if par.R != 1 << (32 * nw):
+        raise ValueError(f"{name}: R is not 2^(32 * {nw})")
 
     def words(x):
-        return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+        return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
 
     n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
     return np.array(words(p) + words(2 * p) + words(par.R_mod) + [n0]

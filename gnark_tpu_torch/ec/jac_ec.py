@@ -5,8 +5,9 @@ Counterpart of gnark_tpu.ec.pallas_ec.jac_add_mixed_p / jac_double_p /
 jac_add_p (EFD madd-2007-bl and add-2007-bl with the selects of a
 complete add, and dbl-2009-l), for G1 over Fp and G2 over Fp2 (the
 reference's kernels are G1 only).
-Points are tuples (X, Y, Z) of (n, Lw) int32 word tensors, Lw = 8 for
-G1 and 16 for G2 (flat rows c0 | c1); Z == 0 is infinity. Inputs may be
+Points are tuples (X, Y, Z) of (n, Lw) int32 word tensors, Lw = nw for
+G1 and 2 nw for G2 (flat rows c0 | c1; nw = 8 on BN254, 12 on
+BLS12-381); Z == 0 is infinity. Inputs may be
 any representative < 2p; outputs are canonical. Kernel: csrc/jac_ec.cu.
 jac_fold is K8's formula over the scan-path MSM's group fold: each bucket
 column's G points summed left to right in one launch.
@@ -24,7 +25,7 @@ import torch
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ec import weierstrass
 from gnark_tpu_torch.ec.proj_ec import (_check_point, _limbs, _lw, _words,
-                                        is_fp2, kernel_field)
+                                        is_fp2, kernel_field, lib_field)
 
 
 def jac_add_mixed_plain(ff, P, x2, y2, inf2):
@@ -61,28 +62,28 @@ def jac_fold_plain(ff, P, G, B):
 
 
 @functools.lru_cache(maxsize=None)
-def _fold_fn():
-    return cuda.bind("jac_ec", "gt_jac_fold", 6,
+def _fold_fn(field):
+    return cuda.bind("jac_ec", field, "gt_jac_fold", 6,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _add_fn():
-    return cuda.bind("jac_ec", "gt_jac_add", 9,
+def _add_fn(field):
+    return cuda.bind("jac_ec", field, "gt_jac_add", 9,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _madd_fn():
-    return cuda.bind("jac_ec", "gt_jac_add_mixed", 9,
+def _madd_fn(field):
+    return cuda.bind("jac_ec", field, "gt_jac_add_mixed", 9,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _dbl_fn():
-    return cuda.bind("jac_ec", "gt_jac_double", 6,
+def _dbl_fn(field):
+    return cuda.bind("jac_ec", field, "gt_jac_double", 6,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -107,9 +108,10 @@ def jac_add_mixed(ff, P, x2, y2, inf2):
                          "the points' device")
     inf2 = inf2.contiguous()
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    rc = _madd_fn()(*(a.data_ptr() for a in P + (x2, y2, inf2) + out), n,
-                    int(m == 1 and n != 1), int(is_fp2(ff)),
-                    consts.ctypes.data, cuda.stream(P[0]))
+    fn = _madd_fn(lib_field(ff))
+    rc = fn(*(a.data_ptr() for a in P + (x2, y2, inf2) + out), n,
+            int(m == 1 and n != 1), int(is_fp2(ff)),
+            consts.ctypes.data, cuda.stream(P[0]))
     cuda.check(rc, "jac_add_mixed")
     jac_add_mixed.launches += 1
     return out
@@ -123,8 +125,9 @@ def jac_double(ff, P):
     consts = kernel_field(ff)
     P = _check_point(ff, P, n, "jac_double P")
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    rc = _dbl_fn()(*(a.data_ptr() for a in P + out), n, int(is_fp2(ff)),
-                   consts.ctypes.data, cuda.stream(P[0]))
+    fn = _dbl_fn(lib_field(ff))
+    rc = fn(*(a.data_ptr() for a in P + out), n, int(is_fp2(ff)),
+            consts.ctypes.data, cuda.stream(P[0]))
     cuda.check(rc, "jac_double")
     jac_double.launches += 1
     return out
@@ -143,8 +146,9 @@ def _add_card(ff, P, Q):
     P = _check_point(ff, P, n, "jac_add P")
     Q = _check_point(ff, Q, n, "jac_add Q")
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    rc = _add_fn()(*(a.data_ptr() for a in P + Q + out), n, int(is_fp2(ff)),
-                   consts.ctypes.data, cuda.stream(P[0]))
+    fn = _add_fn(lib_field(ff))
+    rc = fn(*(a.data_ptr() for a in P + Q + out), n, int(is_fp2(ff)),
+            consts.ctypes.data, cuda.stream(P[0]))
     cuda.check(rc, "jac_add")
     jac_add.launches += 1
     return out
@@ -170,8 +174,9 @@ def _fold_card(ff, P, G, B):
     P = _check_point(ff, P, N, "jac_fold P")
     ncol = N // G
     out = tuple(P[0].new_empty((ncol, P[0].shape[1])) for _ in range(3))
-    rc = _fold_fn()(*(a.data_ptr() for a in P + out), ncol, G, B,
-                    int(is_fp2(ff)), consts.ctypes.data, cuda.stream(P[0]))
+    fn = _fold_fn(lib_field(ff))
+    rc = fn(*(a.data_ptr() for a in P + out), ncol, G, B, int(is_fp2(ff)),
+            consts.ctypes.data, cuda.stream(P[0]))
     cuda.check(rc, "jac_fold")
     jac_fold.launches += 1
     return out

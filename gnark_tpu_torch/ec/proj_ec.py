@@ -2,8 +2,9 @@
 
 Counterpart of gnark_tpu.ec.pallas_ec.proj_add_p / proj_double_p
 (Renes-Costello-Batina 2015, Algorithms 7 and 9). Points are tuples
-(X, Y, Z) of (n, Lw) int32 word tensors: Lw = 8 for G1 over Fp, Lw = 16
-for G2 over Fp2 (flat rows c0 | c1, the reference's layout). Inputs may
+(X, Y, Z) of (n, Lw) int32 word tensors: Lw = nw for G1 over Fp, 2 nw
+for G2 over Fp2 (flat rows c0 | c1, the reference's layout; nw = 8 on
+BN254, 12 on BLS12-381). Inputs may
 be any representative < 2p; outputs are canonical. Kernel:
 csrc/proj_ec.cu. On a CPU tensor the plain version runs; on a CUDA
 tensor the kernel, or an error.
@@ -27,19 +28,26 @@ def is_fp2(ff) -> bool:
 
 
 def b3_words(ff, b3) -> np.ndarray:
-    """Host words of 3b in Montgomery form (8, or 16 for Fp2)."""
+    """Host words of 3b in Montgomery form (nw, or 2 nw for Fp2)."""
     base = ff.base if is_fp2(ff) else ff
     vals = list(b3) if is_fp2(ff) else [b3]
     return base.encode_words(vals).reshape(-1).view(np.uint32)
 
 
+def lib_field(ff) -> str:
+    """The field whose kernel builds take ff (Fp, or Fp2 by its base)."""
+    return (ff.base if is_fp2(ff) else ff).p.name
+
+
 def kernel_field(ff):
     """Field constants for a kernel over ff (Fp, or Fp2 by its base);
-    raises for a field the kernels do not take."""
-    base = ff.base if is_fp2(ff) else ff
-    if is_fp2(ff) and ff._nr_small != -1:
-        raise ValueError("Fp2 kernels take u^2 = -1 only")
-    return cuda.field_consts(base.p.name)
+    raises for a field the kernels do not take (and for an Fp2 whose
+    u^2 is not the kernels')."""
+    name = lib_field(ff)
+    nr = cuda.kernel_field(name).nr
+    if is_fp2(ff) and ff._nr_small != nr:
+        raise ValueError(f"Fp2 kernels over {name} take u^2 = {nr} only")
+    return cuda.field_consts(name)
 
 
 def kernel_consts(ff, b3):
@@ -150,15 +158,15 @@ def _check_point(ff, P, n, what):
 
 
 @functools.lru_cache(maxsize=None)
-def _add_fn():
-    return cuda.bind("proj_ec", "gt_proj_add", 9,
+def _add_fn(field):
+    return cuda.bind("proj_ec", field, "gt_proj_add", 9,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _dbl_fn():
-    return cuda.bind("proj_ec", "gt_proj_double", 6,
+def _dbl_fn(field):
+    return cuda.bind("proj_ec", field, "gt_proj_double", 6,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_void_p])
 
@@ -173,9 +181,9 @@ def proj_add(ff, b3, P, Q):
     P = _check_point(ff, P, n, "proj_add P")
     Q = _check_point(ff, Q, n, "proj_add Q")
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    rc = _add_fn()(*(a.data_ptr() for a in P + Q + out), n,
-                   int(is_fp2(ff)), consts.ctypes.data, b3w.ctypes.data,
-                   cuda.stream(P[0]))
+    fn = _add_fn(lib_field(ff))
+    rc = fn(*(a.data_ptr() for a in P + Q + out), n, int(is_fp2(ff)),
+            consts.ctypes.data, b3w.ctypes.data, cuda.stream(P[0]))
     cuda.check(rc, "proj_add")
     proj_add.launches += 1
     return out
@@ -189,8 +197,9 @@ def proj_double(ff, b3, P):
     consts, b3w = kernel_consts(ff, b3)
     P = _check_point(ff, P, n, "proj_double P")
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
-    rc = _dbl_fn()(*(a.data_ptr() for a in P + out), n, int(is_fp2(ff)),
-                   consts.ctypes.data, b3w.ctypes.data, cuda.stream(P[0]))
+    fn = _dbl_fn(lib_field(ff))
+    rc = fn(*(a.data_ptr() for a in P + out), n, int(is_fp2(ff)),
+            consts.ctypes.data, b3w.ctypes.data, cuda.stream(P[0]))
     cuda.check(rc, "proj_double")
     proj_double.launches += 1
     return out

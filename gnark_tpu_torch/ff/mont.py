@@ -46,6 +46,10 @@ class FF:
         self.R2_np = np.array(params.to_limbs(params.R2_mod), dtype=np.int64)
         e = params.modulus - 2
         self.pm2_bits = [(e >> i) & 1 for i in range(params.bits)]
+        # 4p >= R (bls12_381_fr: 4r ~ 1.81 R): a product of two inputs
+        # < 2p reaches (4p^2 + R p) / R, past 2p, so it takes a second
+        # conditional subtract (csrc/mont.cuh's sound class)
+        self.sound = 4 * params.modulus >= params.R
         self._dev: dict = {}
 
     def _const(self, name: str, device) -> torch.Tensor:
@@ -235,7 +239,8 @@ class FF:
 
     def mul(self, a, b):
         """Montgomery product a*b*R^-1 mod p. Inputs < 2p with
-        normalized limbs; output canonical.
+        normalized limbs; output canonical (with 4p >= R after two
+        conditional subtracts, else one).
 
         Separated operand scanning: the schoolbook product T (2n limbs)
         in one matrix product (float64 is exact here: each anti-diagonal
@@ -256,7 +261,8 @@ class FF:
             T[i:i + n] += P * m
             T[i + 1] += T[i] >> LIMB_BITS
         R = T[n:].T.reshape(batch + (n + 1,))
-        return self._cond_sub(self._normalize(R))
+        out = self._cond_sub(self._normalize(R))
+        return self._cond_sub(out) if self.sound else out
 
     def square(self, a):
         return self.mul(a, a)

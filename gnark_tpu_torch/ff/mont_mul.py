@@ -28,8 +28,8 @@ def mont_mul_plain(ff: FF, a: torch.Tensor, b: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    return cuda.bind("mont_mul", "gt_mont_mul", 3,
+def _fn(field):
+    return cuda.bind("mont_mul", field, "gt_mont_mul", 3,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -52,7 +52,7 @@ def mont_mul(ff: FF, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a2 = cuda.dev_words(a2, "mont_mul a")
     b2 = cuda.dev_words(b2, "mont_mul b")
     out = torch.empty_like(a2)
-    rc = _fn()(a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n,
+    rc = _fn(ff.p.name)(a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n,
                int(b2.shape[0] == 1 and n != 1), consts.ctypes.data,
                cuda.stream(a2))
     cuda.check(rc, "mont_mul")
@@ -71,8 +71,8 @@ def mont_mul_sub_mul_plain(ff: FF, a, b, c, d):
 
 
 @functools.lru_cache(maxsize=None)
-def _sub_fn():
-    return cuda.bind("mont_mul", "gt_mont_mul_sub_mul", 5,
+def _sub_fn(field):
+    return cuda.bind("mont_mul", field, "gt_mont_mul_sub_mul", 5,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -102,9 +102,10 @@ def _sub_card(ff, a, b, c, d2):
     a, b, c, d2 = (cuda.dev_words(t, "mont_mul_sub_mul")
                    for t in (a, b, c, d2))
     out = torch.empty_like(a)
-    rc = _sub_fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), d2.data_ptr(),
-                   out.data_ptr(), n, int(d2.shape[0] == 1 and n != 1),
-                   consts.ctypes.data, cuda.stream(a))
+    fn = _sub_fn(ff.p.name)
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d2.data_ptr(),
+            out.data_ptr(), n, int(d2.shape[0] == 1 and n != 1),
+            consts.ctypes.data, cuda.stream(a))
     cuda.check(rc, "mont_mul_sub_mul")
     return out
 

@@ -114,14 +114,14 @@ def _check_dot(ff: FF, what: str, cols, pows):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(name: str):
+def _fn(name: str, field: str):
     sig = {"gt_ff_addsub": (3, [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_void_p]),
            "gt_batch_inv": (3, [ctypes.c_longlong, ctypes.c_void_p]),
            "gt_scan_mul": (3, [ctypes.c_longlong, ctypes.c_void_p]),
            "gt_dot_many": (5, [ctypes.c_int, ctypes.c_longlong,
                                ctypes.c_void_p])}[name]
-    return cuda.bind("ff_ops", name, *sig)
+    return cuda.bind("ff_ops", field, name, *sig)
 
 
 def ff_addsub(ff: FF, a, b, sub: bool):
@@ -135,10 +135,11 @@ def ff_addsub(ff: FF, a, b, sub: bool):
     a = cuda.dev_words(a, what)
     b = cuda.dev_words(b, what)
     out = torch.empty_like(a)
-    rc = _fn("gt_ff_addsub")(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-                             int(b.shape[0] == 1 and n != 1), int(sub),
-                             cuda.field_consts(ff.p.name).ctypes.data,
-                             cuda.stream(a))
+    fn = _fn("gt_ff_addsub", ff.p.name)
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+            int(b.shape[0] == 1 and n != 1), int(sub),
+            cuda.field_consts(ff.p.name).ctypes.data,
+            cuda.stream(a))
     cuda.check(rc, what)
     ff_addsub.launches += 1
     return out
@@ -183,9 +184,10 @@ def _batch_inv_card(ff: FF, a):
     out = torch.empty_like(a)
     scratch = torch.empty((2 * max(inv_tiles(n), 1), ff.nw),
                           dtype=torch.int32, device=a.device)
-    rc = _fn("gt_batch_inv")(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                             n, cuda.field_consts(ff.p.name).ctypes.data,
-                             cuda.stream(a))
+    fn = _fn("gt_batch_inv", ff.p.name)
+    rc = fn(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            n, cuda.field_consts(ff.p.name).ctypes.data,
+            cuda.stream(a))
     cuda.check(rc, "batch_inv")
     return out
 
@@ -223,9 +225,10 @@ def _scan_mul_card(ff: FF, a):
     out = torch.empty_like(a)
     scratch = torch.zeros(scan_scratch_words(n), dtype=torch.int32,
                           device=a.device)
-    rc = _fn("gt_scan_mul")(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                            n, cuda.field_consts(ff.p.name).ctypes.data,
-                            cuda.stream(a))
+    fn = _fn("gt_scan_mul", ff.p.name)
+    rc = fn(a.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            n, cuda.field_consts(ff.p.name).ctypes.data,
+            cuda.stream(a))
     cuda.check(rc, "scan_mul")
     return out
 
@@ -288,9 +291,10 @@ def _dot_card(ff: FF, cols, pows):
     ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
     lens = (ctypes.c_longlong * k)(*[c.shape[0] for c in cols])
     scratch = dot_scratch(out.device, stream)
-    rc = _fn("gt_dot_many")(ctypes.addressof(ptrs), ctypes.addressof(lens),
-                            None if pows is None else pows.data_ptr(),
-                            out.data_ptr(), scratch.data_ptr(), k, max(lens),
-                            cuda.field_consts(ff.p.name).ctypes.data, stream)
+    fn = _fn("gt_dot_many", ff.p.name)
+    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(lens),
+            None if pows is None else pows.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), k, max(lens),
+            cuda.field_consts(ff.p.name).ctypes.data, stream)
     cuda.check(rc, "dot")
     return out

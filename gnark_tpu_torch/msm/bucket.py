@@ -2,8 +2,9 @@
 
 Counterpart of gnark_tpu.msm.bucket_kernel. Algorithm:
   * scalars -> signed c-bit digits d in [-2^(c-1), 2^(c-1)], so B =
-    2^(c-1) bucket magnitudes for each of the W = ceil(254 / c) (+1)
-    windows of a 254-bit scalar (the sign flips y);
+    2^(c-1) bucket magnitudes for each of the W = ceil(nbits / c) (+1)
+    windows of an nbits-bit scalar (254 on BN254, 255 on BLS12-381; the
+    sign flips y);
   * K4 bucket_msm sums each (window, bucket)'s points (csrc/bucket_msm.cu:
     a counting sort of the pairs by bucket, then segment sums and folds);
   * K9 bucket_reduce (csrc/bucket_reduce.cu) turns the W*B bucket sums
@@ -29,7 +30,7 @@ import torch
 
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ec.proj_ec import (_limbs, _lw, _words, is_fp2,
-                                        kernel_consts, proj_add,
+                                        kernel_consts, lib_field, proj_add,
                                         proj_add_formula, proj_dbl_formula,
                                         proj_madd_formula)
 from gnark_tpu_torch.ec.weierstrass import proj_to_jac, to_limbs, to_words
@@ -43,7 +44,8 @@ FOLD = 32                         # partials a K4 pass-2 thread adds at most
 # chip_smoke.py's sweep of c in {8, 10, 12, 13, 14, 16} at 2^13, 2^16 and
 # 2^20 + 2049 points in G1 and G2 on one H100: 8 was best or within 3%
 # up to 2^16, 13 at 2^20 (the epilogue, K9, costs the same few ms at any
-# size and width, so small MSMs gain nothing from wider windows).
+# size and width, so small MSMs gain nothing from wider windows); the
+# same sweep over BLS12-381's 12-word points picks the same widths.
 _CARD_C = ((1 << 17, 8), (1 << 30, 13))
 
 
@@ -215,7 +217,7 @@ class Groups(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _k4(fn: str):
+def _k4(fn: str, field: str):
     nptr, rest = {
         "gt_bucket_count": (3, [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int]),
@@ -229,7 +231,7 @@ def _k4(fn: str):
                                   ctypes.c_int, ctypes.c_void_p,
                                   ctypes.c_void_p]),
     }[fn]
-    return cuda.bind("bucket_msm", fn, nptr, rest)
+    return cuda.bind("bucket_msm", field, fn, nptr, rest)
 
 
 def _offsets(per_bucket: torch.Tensor, seg: int) -> torch.Tensor:
@@ -240,10 +242,12 @@ def _offsets(per_bucket: torch.Tensor, seg: int) -> torch.Tensor:
                       torch.cumsum(nseg, 0, dtype=torch.int32)])
 
 
-def bucket_group(digits: torch.Tensor, inf: torch.Tensor, c: int) -> Groups:
+def bucket_group(digits: torch.Tensor, inf: torch.Tensor, c: int,
+                 field: str) -> Groups:
     """K4's grouping on the card: a count kernel, the offsets (cumsum),
     and a scatter kernel that puts every pair in its bucket's slots (a
-    counting sort; the order inside a bucket is not fixed)."""
+    counting sort; the order inside a bucket is not fixed), from the
+    build of K4's source for the base field `field`."""
     W, n = digits.shape
     digits = digits.contiguous()
     inf = inf.contiguous().view(torch.uint8)
@@ -253,13 +257,13 @@ def bucket_group(digits: torch.Tensor, inf: torch.Tensor, c: int) -> Groups:
     B, dev = 1 << (c - 1), digits.device
     nb = W * B
     counts = torch.zeros(nb, dtype=torch.int32, device=dev)
-    cuda.check(_k4("gt_bucket_count")(
+    cuda.check(_k4("gt_bucket_count", field)(
         digits.data_ptr(), inf.data_ptr(), counts.data_ptr(), n, W, B,
         cuda.stream(digits)), "bucket_msm count")
     starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     cursor = starts.clone()
     entries = torch.empty(max(W * n, 1), dtype=torch.int32, device=dev)
-    cuda.check(_k4("gt_bucket_scatter")(
+    cuda.check(_k4("gt_bucket_scatter", field)(
         digits.data_ptr(), inf.data_ptr(), cursor.data_ptr(),
         entries.data_ptr(), n, W, B, cuda.stream(digits)),
         "bucket_msm scatter")
@@ -280,7 +284,7 @@ def bucket_acc(ff, b3, x, y, grp: Groups):
     part = _empty_points(grp.nseg_max, Lw, x.device)
     nb = grp.W << (grp.c - 1)
     ptrs = (x, y, grp.entries, grp.starts, grp.counts, grp.seg_off) + part
-    cuda.check(_k4("gt_bucket_acc")(
+    cuda.check(_k4("gt_bucket_acc", lib_field(ff))(
         *(a.data_ptr() for a in ptrs), nb, SEG, grp.nseg_max,
         int(is_fp2(ff)), consts.ctypes.data, b3w.ctypes.data,
         cuda.stream(x)), "bucket_msm pass 1")
@@ -300,10 +304,11 @@ def bucket_fold(ff, b3, grp: Groups, part):
     most = -(-grp.n // SEG)           # segments of one bucket, at most
     st = cuda.stream(part[0])
     fp2 = int(is_fp2(ff))
+    fold = _k4("gt_bucket_segfold", lib_field(ff))
 
     def level(part, off, off2, bound, last):
         out = _empty_points(bound, Lw, dev)
-        cuda.check(_k4("gt_bucket_segfold")(
+        cuda.check(fold(
             *(a.data_ptr() for a in part + (off, off2) + out), nb, FOLD,
             bound, fp2, last, consts.ctypes.data, b3w.ctypes.data, st),
             "bucket_msm pass 2")
@@ -321,7 +326,7 @@ def bucket_fold(ff, b3, grp: Groups, part):
 def bucket_msm(ff, b3, x, y, inf, digits, c: int = C_BITS):
     """Bucket sums of a signed-digit MSM at window width c.
 
-    x, y: (n, Lw) words (Lw = 8 for G1, 16 for flat G2 rows), affine,
+    x, y: (n, Lw) words (Lw = nw for G1, 2 nw for flat G2 rows), affine,
     Montgomery; inf: (n,) bool; digits: (W, n) int32 signed digits,
     |d| <= 2^(c-1). Returns (X, Y, Z), each (W*B, Lw) canonical words,
     B = 2^(c-1): entry w*B + j is the sum over points with
@@ -340,7 +345,7 @@ def _bucket_msm_card(ff, b3, x, y, inf, digits, c):
     y = cuda.dev_words(y, "bucket_msm y", (n, Lw))
     if not 2 <= c <= 16:
         raise ValueError(f"bucket_msm: window width {c} not in 2..16")
-    grp = bucket_group(digits, inf, c)
+    grp = bucket_group(digits, inf, c, lib_field(ff))
     return bucket_fold(ff, b3, grp, bucket_acc(ff, b3, x, y, grp))
 
 
@@ -354,32 +359,33 @@ def digit_count(nbits: int, c: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _digits_fn():
-    return cuda.bind("bucket_msm", "gt_bucket_digits", 2,
+def _digits_fn(field):
+    return cuda.bind("bucket_msm", field, "gt_bucket_digits", 2,
                      [ctypes.c_longlong] + [ctypes.c_int] * 3)
 
 
-def bucket_digits(words: torch.Tensor, nbits: int, c: int):
-    """Signed c-bit digits of plain scalars: (n, 8) int32 words -> (W, n)
-    int32, the digits of signed_digits (its plain version) on their
-    limbs; on the card, one kernel of K4's source."""
+def bucket_digits(words: torch.Tensor, nbits: int, c: int, field: str):
+    """Signed c-bit digits of plain scalars: (n, 8) int32 words -> (W,
+    n) int32, the digits of signed_digits (its plain version) on their
+    limbs; on the card, one kernel of K4's source as built for the base
+    field `field`."""
     if words.device.type == "cpu":
         return signed_digits(scalar_limbs(words), nbits, c)
-    out = _digits_card(words, nbits, c)
+    out = _digits_card(words, nbits, c, field)
     bucket_digits.launches += 1
     return out
 
 
-def _digits_card(words, nbits, c):
+def _digits_card(words, nbits, c, field):
     n = words.shape[0]
     if not 2 <= c <= 16 or nbits > 32 * 8:
         raise ValueError(f"bucket_digits: c = {c}, nbits = {nbits}")
     words = cuda.dev_words(words, "bucket_digits scalars", (n, 8))
     W = digit_count(nbits, c)
     out = torch.empty((W, n), dtype=torch.int32, device=words.device)
-    cuda.check(_digits_fn()(words.data_ptr(), out.data_ptr(), n, c,
-                            -(-nbits // c), W, cuda.stream(words)),
-               "bucket_digits")
+    fn = _digits_fn(field)
+    cuda.check(fn(words.data_ptr(), out.data_ptr(), n, c, -(-nbits // c),
+                  W, cuda.stream(words)), "bucket_digits")
     return out
 
 
@@ -429,8 +435,8 @@ def bucket_reduce_plain(ff, b3, P, W: int, c: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _k9():
-    return cuda.bind("bucket_reduce", "gt_bucket_reduce", 10,
+def _k9(field):
+    return cuda.bind("bucket_reduce", field, "gt_bucket_reduce", 10,
                      [ctypes.c_int] * 6 + [ctypes.c_void_p,
                                            ctypes.c_void_p])
 
@@ -462,9 +468,10 @@ def _bucket_reduce_card(ff, b3, P, W, c):
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = _empty_points(1, Lw, dev)
     ptrs = P + part + (counter,) + out
-    cuda.check(_k9()(*(a.data_ptr() for a in ptrs), W, c, L, T, nblk,
-                     int(is_fp2(ff)), consts.ctypes.data, b3w.ctypes.data,
-                     cuda.stream(P[0])), "bucket_reduce")
+    fn = _k9(lib_field(ff))
+    cuda.check(fn(*(a.data_ptr() for a in ptrs), W, c, L, T, nblk,
+                  int(is_fp2(ff)), consts.ctypes.data, b3w.ctypes.data,
+                  cuda.stream(P[0])), "bucket_reduce")
     return out
 
 
@@ -525,7 +532,7 @@ def msm_proj(ff, points, scalars, nbits: int, chunk: int | None = None):
     x, y, inf = points
     acc = None
     for off, end, c in chunk_plan(x.shape[0], nbits, x.device, chunk):
-        digits = bucket_digits(scalars[off:end], nbits, c)
+        digits = bucket_digits(scalars[off:end], nbits, c, lib_field(ff))
         part = _msm_device(ff, (x[off:end], y[off:end], inf[off:end]),
                            digits, digits.shape[0], c)
         acc = part if acc is None else proj_add(ff, _b3(ff), acc, part)

@@ -15,8 +15,9 @@ result is one launch of K1's affine kernel (csrc/mont_mul.cu,
 affine_words: batch inversion); its plain version is the Fermat chain
 of plain products over the batch that the reference runs.
 
-Points are (n, Lw) int32 words (Lw = 8 for G1, 16 for flat G2 rows);
-scalars are (n, nw) int32 words of plain (non-Montgomery) integers.
+Points are (n, Lw) int32 words (Lw = nw for G1, 2 nw for flat G2 rows;
+nw = 8 on BN254, 12 on BLS12-381); scalars are (n, 8) int32 words of
+plain (non-Montgomery) integers (csrc/mont.cuh's GT_SW).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ec.jac_ec import (jac_add_mixed, jac_add_mixed_plain,
                                        jac_double, jac_double_plain)
-from gnark_tpu_torch.ec.proj_ec import _lw, is_fp2, kernel_field
+from gnark_tpu_torch.ec.proj_ec import _lw, is_fp2, kernel_field, lib_field
 from gnark_tpu_torch.ff import on_words
 from gnark_tpu_torch.ff.mont_mul import mont_mul_plain
 
@@ -67,8 +68,8 @@ def batch_scalar_mul_plain(ff, base_affine, nbits: int, scalars):
 
 
 @functools.lru_cache(maxsize=None)
-def _ladder_fn():
-    return cuda.bind("ladder", "gt_ladder", 6,
+def _ladder_fn(field):
+    return cuda.bind("ladder", field, "gt_ladder", 6,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
 
@@ -99,9 +100,10 @@ def batch_scalar_mul(ff, base_affine, nbits: int, scalars: torch.Tensor):
                                    .view(np.uint32)) for a in base_affine)
     out = tuple(torch.empty((n, _lw(ff)), dtype=torch.int32,
                             device=sc.device) for _ in range(3))
-    rc = _ladder_fn()(sc.data_ptr(), bx.ctypes.data, by.ctypes.data,
-                      *(a.data_ptr() for a in out), n, nbits,
-                      int(is_fp2(ff)), consts.ctypes.data, cuda.stream(sc))
+    fn = _ladder_fn(lib_field(ff))
+    rc = fn(sc.data_ptr(), bx.ctypes.data, by.ctypes.data,
+            *(a.data_ptr() for a in out), n, nbits,
+            int(is_fp2(ff)), consts.ctypes.data, cuda.stream(sc))
     cuda.check(rc, "batch_scalar_mul")
     batch_scalar_mul.launches += 1
     return out
@@ -121,15 +123,24 @@ def _inv(f, z):
     return r
 
 
-def _mul2(f, a, b):
-    """Fp2 products (u^2 = -1) of (m, 2, nw) words: the four base
-    products at once, then c0 = a0 b0 - a1 b1, c1 = a0 b1 + a1 b0."""
+def _nr_times(ff, a):
+    """nr * a of base-field words, canonical (u^2 = nr in ff)."""
+    f = ff.base
+    return f.to_words(ff._mul_nr(f.from_words(a)))
+
+
+def _mul2(ff, a, b):
+    """Fp2 products of (m, 2, nw) words: the four base products at once,
+    then c0 = a0 b0 + nr a1 b1 (u^2 = -1: a0 b0 - a1 b1), c1 = a0 b1 +
+    a1 b0."""
+    f = ff.base
     a0, a1, b0, b1 = a[:, 0], a[:, 1], b[:, 0], b[:, 1]
     p00, p11, p01, p10 = mont_mul_plain(f, torch.cat([a0, a1, a0, a1]),
                                         torch.cat([b0, b1, b1, b0])
                                         ).chunk(4)
-    return torch.stack([on_words(f, "sub", p00, p11),
-                        on_words(f, "add", p01, p10)], 1)
+    c0 = on_words(f, "sub", p00, p11) if ff._nr_small == -1 else \
+        on_words(f, "add", p00, _nr_times(ff, p11))
+    return torch.stack([c0, on_words(f, "add", p01, p10)], 1)
 
 
 def affine_words_plain(ff, P):
@@ -148,27 +159,30 @@ def affine_words_plain(ff, P):
     X, Y, Z = (a.reshape(n, 2, f.nw) for a in (X, Y, Z))
     Zt = Z.transpose(0, 1).reshape(2 * n, f.nw)
     sq = mont_mul_plain(f, Zt, Zt)
-    di = _inv(f, on_words(f, "add", sq[:n], sq[n:]))
+    # the norm z0^2 - nr z1^2 (u^2 = -1: z0^2 + z1^2)
+    norm = on_words(f, "add", sq[:n], sq[n:]) if ff._nr_small == -1 else \
+        on_words(f, "sub", sq[:n], _nr_times(ff, sq[n:]))
+    di = _inv(f, norm)
     z0, z1 = mont_mul_plain(f, Zt, torch.cat([di, di])).chunk(2)
     zi = torch.stack([z0, on_words(f, "neg", z1)], 1)
-    zi2 = _mul2(f, zi, zi)
-    zi3 = _mul2(f, zi2, zi)
-    x, y = _mul2(f, torch.cat([X, Y]), torch.cat([zi2, zi3])).chunk(2)
+    zi2 = _mul2(ff, zi, zi)
+    zi3 = _mul2(ff, zi2, zi)
+    x, y = _mul2(ff, torch.cat([X, Y]), torch.cat([zi2, zi3])).chunk(2)
     return x.reshape(n, -1), y.reshape(n, -1)
 
 
 @functools.lru_cache(maxsize=None)
-def _affine_fn():
-    return cuda.bind("mont_mul", "gt_jac_to_affine", 5,
+def _affine_fn(field):
+    return cuda.bind("mont_mul", field, "gt_jac_to_affine", 5,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def affine_words(ff, P):
     """Jacobian words (X, Y, Z) (n, Lw), < 2p -> canonical affine words
     (x, y) = (X / Z^2, Y / Z^3); Z = 0 gives x = y = 0. ff: Fp (G1) or
-    Fp2 with u^2 = -1 (G2). On the card: one launch of K1's affine
-    kernel (Montgomery's batch inversion over each thread's points, one
-    Fermat inverse a thread, and the affine products)."""
+    Fp2 (G2; on the card u^2 = -1 only). On the card: one launch of K1's
+    affine kernel (Montgomery's batch inversion over each thread's
+    points, one Fermat inverse a thread, and the affine products)."""
     if len(P) != 3 or P[0].dim() != 2:
         raise ValueError("affine_words: P must be (X, Y, Z), each (n, Lw)")
     n = P[0].shape[0]
@@ -177,8 +191,6 @@ def affine_words(ff, P):
                          f"got {[tuple(a.shape) for a in P]}")
     if any(a.device != P[0].device for a in P):
         raise ValueError("affine_words: X, Y, Z on different devices")
-    if is_fp2(ff) and ff._nr_small != -1:
-        raise ValueError("affine_words takes Fp2 with u^2 = -1 only")
     if P[0].device.type == "cpu":
         return affine_words_plain(ff, P)
     out = _affine_card(ff, P)
@@ -191,9 +203,10 @@ def _affine_card(ff, P):
     consts = kernel_field(ff)
     X, Y, Z = (cuda.dev_words(a, "affine_words") for a in P)
     x, y = torch.empty_like(X), torch.empty_like(X)
-    rc = _affine_fn()(X.data_ptr(), Y.data_ptr(), Z.data_ptr(), x.data_ptr(),
-                      y.data_ptr(), n, int(is_fp2(ff)), consts.ctypes.data,
-                      cuda.stream(X))
+    fn = _affine_fn(lib_field(ff))
+    rc = fn(X.data_ptr(), Y.data_ptr(), Z.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n, int(is_fp2(ff)), consts.ctypes.data,
+            cuda.stream(X))
     cuda.check(rc, "affine_words")
     return x, y
 

@@ -180,15 +180,15 @@ def row_fft_plain(ff: FF, x: torch.Tensor, pw: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _seg_fn():
-    return cuda.bind("row_fft", "gt_fs_seg", 5,
+def _seg_fn(field):
+    return cuda.bind("row_fft", field, "gt_fs_seg", 5,
                      [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5 +
                      [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _pass_fn():
-    return cuda.bind("row_fft", "gt_fs_pass", 4,
+def _pass_fn(field):
+    return cuda.bind("row_fft", field, "gt_fs_pass", 4,
                      [ctypes.c_longlong] * 5 + [ctypes.c_int] * 3 +
                      [ctypes.c_void_p])
 
@@ -212,13 +212,13 @@ def _rows_card(ff, src, src_s, pre, dst, dst_s, post, bcast, rows, L, pw,
                           device=src.device)
         s0 = 0
         for r in passes:
-            cuda.check(_pass_fn()(
+            cuda.check(_pass_fn(ff.p.name)(
                 src.data_ptr(), ptr(pre), buf.data_ptr(), pw.data_ptr(),
                 src_s[0], src_s[1], 1 << L, 1, rows, L, s0, r, consts, st),
                 "fourstep pass")
             src, src_s, pre = buf, (1 << L, 1), None
             s0 += r
-    cuda.check(_seg_fn()(
+    cuda.check(_seg_fn(ff.p.name)(
         src.data_ptr(), ptr(pre), dst.data_ptr(), ptr(post),
         seg_tw.data_ptr(), src_s[0], src_s[1], dst_s[0], dst_s[1], rows, L,
         G, orev[0], orev[1], int(bcast), consts, st),

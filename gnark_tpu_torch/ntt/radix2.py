@@ -55,15 +55,15 @@ def butterfly_plain(ff: FF, y: torch.Tensor, tw: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _pass_fn():
-    return cuda.bind("butterfly", "gt_ntt_pass", 2,
+def _pass_fn(field):
+    return cuda.bind("butterfly", field, "gt_ntt_pass", 2,
                      [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_longlong, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _seg_fn():
-    return cuda.bind("butterfly", "gt_ntt_seg", 3,
+def _seg_fn(field):
+    return cuda.bind("butterfly", field, "gt_ntt_seg", 3,
                      [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -84,8 +84,9 @@ def butterfly(ff: FF, y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
         raise ValueError("butterfly: y must be contiguous and 16-byte "
                          "aligned (it is updated in place)")
     tw = cuda.dev_words(tw, "butterfly tw")
-    rc = _pass_fn()(y.data_ptr(), tw.data_ptr(), n, lh, 1, half,
-                    consts.ctypes.data, cuda.stream(y))
+    fn = _pass_fn(ff.p.name)
+    rc = fn(y.data_ptr(), tw.data_ptr(), n, lh, 1, half, consts.ctypes.data,
+            cuda.stream(y))
     cuda.check(rc, "butterfly")
     butterfly.launches += 1
     return y
@@ -132,14 +133,15 @@ def _ntt_card(ff, x, tw):
     tw = cuda.dev_words(tw, "radix2_ntt tw")
     y = torch.empty_like(x)
     st = cuda.stream(x)
-    cuda.check(_seg_fn()(x.data_ptr(), y.data_ptr(), tw.data_ptr(), k,
-                         consts.ctypes.data, st), "radix2_ntt seg")
+    seg, pas = _seg_fn(ff.p.name), _pass_fn(ff.p.name)
+    cuda.check(seg(x.data_ptr(), y.data_ptr(), tw.data_ptr(), k,
+                   consts.ctypes.data, st), "radix2_ntt seg")
     radix2_ntt.launches += 1
     s0 = min(k, SEG_LOG)
     while s0 < k:
         r = min(PASS_MAX, k - s0)
-        cuda.check(_pass_fn()(y.data_ptr(), tw.data_ptr(), n, s0, r, 1,
-                              consts.ctypes.data, st), "radix2_ntt pass")
+        cuda.check(pas(y.data_ptr(), tw.data_ptr(), n, s0, r, 1,
+                       consts.ctypes.data, st), "radix2_ntt pass")
         radix2_ntt.launches += 1
         s0 += r
     return y

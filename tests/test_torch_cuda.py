@@ -126,6 +126,67 @@ def test_ff_ops(dev, n):
     assert torch.equal(ff_ops.batch_inv(f, z), z)
 
 
+@pytest.mark.parametrize("n", [1, 5, 2049, 70001])
+def test_bls12_381_scalar_field_kernels(dev, n):
+    """K1 and K10-K13 built in the sound class for BLS12-381's scalar
+    field (4r > R) against their plain versions, on lazy inputs whose
+    first row is 2p - 1 in both operands (a lazy product of the two
+    passes R)."""
+    f = get_ff("bls12_381_fr")
+    a, b = _lazy_words(f, n, 3, dev), _lazy_words(f, n, 4, dev)
+    top = torch.as_tensor(np.frombuffer((2 * f.p.modulus - 1).to_bytes(
+        4 * f.nw, "little"), dtype=np.int32).copy(), device=dev)
+    a[0], b[0] = top, top
+    for bb in (b, b[:1]):
+        assert torch.equal(mont_mul(f, a, bb), mont_mul_plain(f, a, bb))
+        assert torch.equal(ff_ops.add(f, a, bb), ff_ops.add_plain(f, a, bb))
+        assert torch.equal(ff_ops.sub(f, a, bb), ff_ops.sub_plain(f, a, bb))
+    assert torch.equal(mont_mul_sub_mul(f, a, b, b, a),
+                       mont_mul_sub_mul_plain(f, a, b, b, a))
+    assert torch.equal(ff_ops.batch_inv(f, a), ff_ops.batch_inv_plain(f, a))
+    assert torch.equal(ff_ops.scan_mul(f, a), ff_ops.scan_mul_plain(f, a))
+    assert torch.equal(ff_ops.dot(f, a, b), ff_ops.dot_plain(f, a, b))
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_bls12_381_points(dev, g2):
+    """The 12-word builds: the ladder at 255 bits on 0, 1, r - 1, r and
+    r + 2 against the host, the affine kernel against its plain version,
+    and the bucket MSM (digit kernel, K4, K9) against the host."""
+    c = curves.CURVES["bls12_381"]
+    ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+    hf = c.host_g2_field if g2 else c.host_fp
+    gen = c.g2 if g2 else c.g1
+    fr, r = get_ff(c.fr.name), c.fr.modulus
+    ks = [0, 1, r - 1, r, r + 2] + [random.Random(g2).randrange(r)
+                                    for _ in range(59)]
+    sc = torch.as_tensor(np.frombuffer(b"".join(
+        k.to_bytes(32, "little") for k in ks), dtype=np.int32).copy(),
+        device=dev).reshape(-1, 8)
+    base = tuple(torch.as_tensor(ff.encode_words([v]), device=dev)
+                 for v in gen)
+    P = batch_scalar_mul(ff, base, c.fr.bits, sc)
+    x, y = affine_words(ff, P)
+    assert all(torch.equal(u, v) for u, v in
+               zip((x, y), affine_words_plain(ff, P)))
+    shape = (-1, 2, ff.base.nw) if g2 else (-1, ff.nw)
+    pts = _host_points_of(ff, hf, x, y, P[2], shape)
+    assert pts == [host.ec_mul(hf, gen, k % r) for k in ks]
+    rng = random.Random(7 + g2)
+    ms = [rng.randrange(r) for _ in ks]
+    ms[1], ms[2] = 0, r - 1
+    inf = (P[2] == 0).all(-1)
+    kind, R = msm_raw(ff, (x, y, inf), torch.as_tensor(
+        fr.encode_words(ms, mont=False), device=dev), c.fr.bits)
+    assert _to_affine_host(ff, hf, kind, R) == host.ec_msm(hf, pts, ms)
+
+
+def _host_points_of(ff, hf, x, y, Z, shape):
+    from gnark_tpu_torch.backend.groth16 import _host_points
+    inf = (Z == 0).all(-1)
+    return _host_points(ff, x.reshape(shape), y.reshape(shape), inf)
+
+
 def _dev_rows(ff, n, seed, dev, zeros=()):
     """n random canonical rows made on the card (the top word cut below
     0x30000000, so < p), p added to every third one, the given rows zero
@@ -429,7 +490,7 @@ def test_seg_smem_matches_kernel(dev):
     """fourstep.seg_smem_bytes, the host's copy of the segment block's
     shared-memory size that the row_plan fault tests read, against the
     kernel's own formula (gt_fs_smem) at every segment log."""
-    smem = cuda.lib("row_fft").gt_fs_smem
+    smem = cuda.lib("row_fft", "bn254_fr").gt_fs_smem
     smem.restype = ctypes.c_longlong
     for G in range(1, fourstep.SMEM_LOG + 1):
         assert smem(G) == fourstep.seg_smem_bytes(G), G
@@ -493,7 +554,7 @@ def test_bucket_digits(dev):
         [0, 1, CURVE.fr.modulus - 1]
     sc = torch.as_tensor(f.encode_words(ks, mont=False), device=dev)
     for c in range(2, 17):
-        assert torch.equal(bucket_digits(sc, CURVE.fr.bits, c),
+        assert torch.equal(bucket_digits(sc, CURVE.fr.bits, c, CURVE.fp.name),
                            signed_digits(scalar_limbs(sc), CURVE.fr.bits, c))
 
 
@@ -518,7 +579,7 @@ def test_bucket_msm_width_and_reduce(dev, g2, c):
     ks[20:60] = [2] * 40                          # skew: one bucket
     sc = torch.as_tensor(get_ff(CURVE.fr.name).encode_words(ks, mont=False),
                          device=dev)
-    digits = bucket_digits(sc, CURVE.fr.bits, c)
+    digits = bucket_digits(sc, CURVE.fr.bits, c, CURVE.fp.name)
     got = bucket_msm(ff, b3, x, y, inf, digits, c)
     assert _proj_equal(ff, got, bucket_msm_plain(ff, b3, x, y, inf, digits,
                                                  c))
@@ -803,6 +864,50 @@ def test_plonk_card_equals_cpu(dev):
                        device="cpu")
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert plonk.verify(got, vk, pub)
+
+
+def test_commitment_proofs_card(dev, monkeypatch):
+    """A circuit with one BSB22 commitment (std/rangecheck over one
+    value): its PLONK proof on the card equals the CPU's on the same
+    keys (the Qcp columns and the pi2 commitment included), and its
+    Groth16 proof on the scan path (K6, K7, K8) equals the bucket path's
+    under the same rng (commitment and PoK included); both verify."""
+    import dataclasses
+
+    from gnark_tpu_torch import fields
+    from gnark_tpu_torch.backend import groth16, kzg, plonk
+    from gnark_tpu_torch.backend.groth16_check import (
+        RangeChecked, range_checked_assignment)
+    from gnark_tpu_torch.frontend import compile_circuit, witness
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+
+    assign = range_checked_assignment(1, 5)
+    cs = compile_circuit(RangeChecked(1), fields.BN254_FR,
+                         builder_cls=SCSBuilder)
+    assert len(cs.commitments) == 1
+    pub, sec = witness(assign, cs)
+    N = 1 << (cs.nb_public + cs.nb_constraints - 1).bit_length()
+    srs = kzg.setup_srs("bn254", N + 8, rng=random.Random(0), device=dev)
+    pk, vk = plonk.setup(cs, srs)
+    got = plonk.prove(cs, pk, pub, sec, rng=random.Random(1), device=dev)
+    with monkeypatch.context() as m:
+        m.setenv("GNARK_TPU_MSM_C", "4")     # the plain epilogue's time
+        want = plonk.prove(cs, pk.to("cpu"), pub, sec, rng=random.Random(1),
+                           device="cpu")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert plonk.verify(got, vk, pub)
+
+    cs = compile_circuit(RangeChecked(1), fields.BN254_FR)
+    assert len(cs.commitments) == 1
+    pub, sec = witness(assign, cs)
+    pk, vk = groth16.setup(cs, "bn254", rng=random.Random(2), device=dev)
+    proofs = {}
+    for impl in ("scan", "bucket"):
+        monkeypatch.setenv("GNARK_TPU_MSM_IMPL", impl)
+        proofs[impl] = groth16.prove(cs, pk, pub, sec, rng=random.Random(3),
+                                     device=dev)
+    assert proofs["scan"] == proofs["bucket"]
+    assert groth16.verify(proofs["bucket"], vk, pub)
 
 
 def test_rho_and_coset_quotients_equal(dev, monkeypatch):

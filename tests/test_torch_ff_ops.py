@@ -142,7 +142,7 @@ def test_card_halves_hand_the_kernels_zeroed_state(monkeypatch):
     f = get_ff(NAME)
     seen = {}
 
-    def stub(name):
+    def stub(name, field):
         def call(*args):
             n = args[-3]
             if name == "gt_scan_mul":

@@ -132,7 +132,7 @@ def test_jac_to_affine_on_the_card_is_one_fused_launch(g2, stub_card,
     ff = get_ff2(CURVE.fp.name, CURVE.fp2_nr) if g2 else \
         get_ff(CURVE.fp.name)
     kernel = _Kernel()
-    monkeypatch.setattr(fixed_base, "_affine_fn", lambda: kernel)
+    monkeypatch.setattr(fixed_base, "_affine_fn", lambda field: kernel)
 
     def no_product(*args):
         raise AssertionError("a K1 product on the card's affine path")
@@ -152,7 +152,7 @@ def test_jac_to_affine_on_the_card_is_one_fused_launch(g2, stub_card,
 def test_mont_mul_sub_mul_on_the_card_is_one_launch(stub_card, monkeypatch):
     f = get_ff("bn254_fr")
     kernel = _Kernel()
-    monkeypatch.setattr(mm, "_sub_fn", lambda: kernel)
+    monkeypatch.setattr(mm, "_sub_fn", lambda field: kernel)
     n = 1 << 20
     a, b, c = (torch.empty((n, 8), dtype=torch.int32, device="meta")
                for _ in range(3))

@@ -92,8 +92,8 @@ def test_fourstep_launches(k, cap, passes, monkeypatch):
     monkeypatch.setattr(cuda, "dev_words", lambda t, what, shape=None: t)
     monkeypatch.setattr(cuda, "stream", lambda t: 0)
     seg, pas = _Kernel(), _Kernel()
-    monkeypatch.setattr(fourstep, "_seg_fn", lambda: seg)
-    monkeypatch.setattr(fourstep, "_pass_fn", lambda: pas)
+    monkeypatch.setattr(fourstep, "_seg_fn", lambda field: seg)
+    monkeypatch.setattr(fourstep, "_pass_fn", lambda field: pas)
     f = get_ff(FR)
     n = 1 << k
     dom = Domain(f, n, "cpu")

@@ -266,8 +266,8 @@ def test_card_halves_marshal_their_arguments(case, monkeypatch):
             ctypes.string_at(scratch, 32 * (1 + ops.DOT_MAXB * ops.DOT_K))))
         return 0
 
-    monkeypatch.setattr(plonk_num, "_fn", lambda: num_stub)
-    monkeypatch.setattr(ops, "_fn", lambda name: dot_stub)
+    monkeypatch.setattr(plonk_num, "_fn", lambda field: num_stub)
+    monkeypatch.setattr(ops, "_fn", lambda name, field: dot_stub)
     monkeypatch.setattr(cuda, "stream", lambda t: 0)
     monkeypatch.setattr(cuda, "dev_words", lambda t, what, shape=None: t)
     cols = {k: _lazy(v) for k, v in case["vals"].items()}

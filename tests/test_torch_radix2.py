@@ -138,8 +138,8 @@ def test_radix2_plan_launches(k, monkeypatch):
     monkeypatch.setattr(cuda, "dev_words", lambda t, what, shape=None: t)
     monkeypatch.setattr(cuda, "stream", lambda t: 0)
     seg, pas = _Kernel(), _Kernel()
-    monkeypatch.setattr(radix2, "_seg_fn", lambda: seg)
-    monkeypatch.setattr(radix2, "_pass_fn", lambda: pas)
+    monkeypatch.setattr(radix2, "_seg_fn", lambda field: seg)
+    monkeypatch.setattr(radix2, "_pass_fn", lambda field: pas)
     f = get_ff(FR)
     n = 1 << k
     plan = Radix2.__new__(Radix2)
