@@ -5,11 +5,15 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit;
   2. build: the CUDA kernel libraries, one nvcc each, in parallel: the
-     ten sources for BN254 (8 words, the lazy class), and for BLS12-381
+     ten sources for BN254 (8 words, the lazy class), for BLS12-381
      the point sources at 12 words and the scalar-field sources in the
-     sound class (cuda.builds(): 21 libraries), with each library's
-     seconds and its ptxas register / spill lines; and the native
-     witness solver;
+     sound class, for BLS12-377 the point sources at 12 words with u^2 =
+     -5 (its scalar field runs BN254's builds; cuda.builds(): 27
+     libraries), the other curves' niced and each waited for before its
+     phases (BLS12-377's right after BN254's, for its checks process;
+     BLS12-381's right after BN254's phase 3, for its own),
+     with each library's seconds and its ptxas register / spill lines;
+     and the native witness solver;
   3. every kernel against its plain PyTorch version on the card:
      K1 mont_mul, mont_mul_sub_mul ((a*b - c)*d, broadcast d) and
      affine_words (Jacobian -> affine in G1 and G2: infinity, Z = 1, Z in
@@ -41,12 +45,21 @@ Phases (any failure exits non-zero):
      + 3 in both forms (one Z_H, a period-4 table), against its plain
      version and against the K1 / K10 / K11 sequence it replaced; and the
      CUDA kernels one call of each starts (the profiler's device trace,
-     in a fresh process: K11 3, K12 1, K13 1, K14 1); then all of this phase again on the
-     BLS12-381 builds (CURVE2): 12-word G1 and G2 for K1's affine kernel,
-     K3, K4 and its digit kernel (255-bit scalars), K6-K9, jac_fold and
-     the ladder on 0, 1, r - 1, r, r + 2 at 255 bits; the scalar field's
+     in a fresh process, after a first session thrown away; a call whose
+     trace is empty though its wrapper counted a launch is traced again,
+     at most three times: K11 3, K12 1, K13 1, K14 1); then all of this
+     phase again for each curve of CURVES2, before its phase 5: on the
+     BLS12-381 builds, 12-word G1 and G2 for K1's affine kernel, K3, K4
+     and its digit kernel (255-bit scalars), K6-K9, jac_fold and the
+     ladder on 0, 1, r - 1, r, r + 2 at 255 bits; the scalar field's
      sound class for K1, K2, K5 and K10-K14, every operand list holding
-     rows in [p, 2p) and a row with both operands at 2p - 1;
+     rows in [p, 2p) and a row with both operands at 2p - 1; on
+     BLS12-377's, the same point kernels at 12 words with u^2 = -5
+     (253-bit scalars), and its scalar field on BN254's builds at n <=
+     2^16 + 3 (SHARED_FR; no kernels-a-call trace: BN254's binaries),
+     in a process of its own beside BN254's phase 3 (curve_checks);
+     BLS12-381's phase 3 and cubic cell in a process of its own beside
+     BN254's phases 4 and 5 (their host-bound solves and circuits);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
@@ -83,15 +96,20 @@ Phases (any failure exits non-zero):
      three calls of one kernel, K1 at most 135, K10 at most 54), each
      stage timed by the host
      clock and CUDA events, verify, a tampered claimed value and a
-     tampered commitment refused; then BLS12-381: g16_381_20 (the g16_20
-     circuit over its scalar field: setup, sampled key points against
-     host scalar multiplications, three proves with each MSM's digit
-     kernel, K4 and K9 once, 14 K2 and 4 K1 launches, no K3; the five
-     MSMs against their values from the setup's scalars, H by
-     Schwartz-Zippel, verify, a tampered proof refused), plonk_381_20
-     (plonk_20's circuit and checks over BLS12-381) and cubic_381_plonk
-     (examples/cubic.py's circuit: the card's proof equals the CPU's
-     byte for byte, verify, a wrong public value refused);
+     tampered commitment refused; then for BLS12-381 and BLS12-377:
+     g16_381_18 / g16_377_20 (the g16_20 circuit over the curve's scalar
+     field: setup, sampled key points against host scalar
+     multiplications, three proves with each MSM's digit kernel, K4 and
+     K9 once, 14 K2 and 4 K1 launches, no K3; the five MSMs against
+     their values from the setup's scalars, H by Schwartz-Zippel,
+     verify, a tampered proof refused), plonk_381_18 / plonk_377_20
+     (plonk_20's circuit and checks) and cubic_381_plonk /
+     cubic_377_plonk (examples/cubic.py's circuit: the card's proof
+     equals the CPU's byte for byte, verify, a wrong public value
+     refused; cubic_381_plonk and cubic_377_plonk in their curve's
+     checks process); BLS12-381's
+     two cells at 2^18 (CELL_LOG: g16_381_18, plonk_381_18, every check
+     kept; the time limit's cuts);
   6. every kernel again at the shapes its path gives it, held against
      its plain version on the same inputs (K4 and K9 on the g16_20 setup
      key's columns, 2^20 distinct points, with K4's grouping and passes
@@ -112,14 +130,21 @@ Phases (any failure exits non-zero):
      JSON line; the whole bucket MSM at each window width of SWEEP_C on
      those columns and their first 2^16 and 2^13 points (one group
      element at every width); the same for the BLS12-381 builds on
-     g16_381_20's key columns and setup (the plain K4 on the first 2^16
-     points), its K10-K14 at 2^20 in the sound class,
-     each a row of its own ("name@bls12_381") in the JSON line; then the
-     card's name and power limit, and the device as the last line. Each
-     phase's wall time is logged ("[time]").
+     g16_381_18's key columns and setup (the plain K4 on the first 2^16
+     points), its K10-K14 at 2^20 in the sound class, each a row of its
+     own ("name@bls12_381") in the JSON line; for BLS12-377 the kernels
+     of its own point builds, K4 and K9 in G1 and G2 on g16_377_20's key
+     columns, the ladder against the per-bit K7 + K6 and the affine
+     kernel on its setup's scalars, and on its scalar field (BN254's
+     binaries) a 2^20 K2 transform and K14 (rows "name@bls12_377" for
+     the kernels it timed; --quick times its K1, K5, mont_mul_sub_mul
+     and K10-K13 too); then the card's name and power limit, and the device
+     as the last line. Each phase's wall time is logged ("[time]").
 
 Option: --quick stops after phase 3, with phase 6's four-step
-transform, K8 / jac_fold and K10-K14 timings. --kernel-counts CURVE only
+transform, K8 / jac_fold and K10-K14 timings and a SHARED_FR curve's
+K1, K5, mont_mul_sub_mul and K10-K13 (times_shared_fr). --kernel-counts
+CURVE only
 prints, as JSON, the CUDA kernels one call of each of K10-K14 starts
 (phase 3 runs it in a process of its own).
 """
@@ -134,6 +159,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -172,7 +198,25 @@ def mul_ops(nw=8):
 
 
 MUL_OPS = mul_ops(8)
-CURVE2 = "bls12_381"  # the second curve on the card (phases 3, 5, 6)
+# the curves beyond BN254 on the card (phases 3, 5, 6), in this order
+CURVES2 = ("bls12_381", "bls12_377")
+# curves whose scalar field runs BN254's 8-word lazy builds
+# (cuda.variant): phase 3 holds those kernels at n <= 2^16 + 3 on the
+# curve's constants, phase 6 times a 2^20 K2 transform and K14 of them
+SHARED_FR = ("bls12_377",)
+# each curve's phase 3 and cubic cell run in a process of their own
+# (curve_checks): a SHARED_FR curve's beside BN254's phase 3, which
+# measures nothing the run reports but its plain ladder's time, waited
+# for before phase 4; the others' beside BN254's phases 4 and 5 (host-
+# bound: circuits, solves), each waited for before its phase 5
+CHECKS_SEED = 2025
+CHECKS_WAIT_S = 900
+# the time limit's cuts (the run was over 1,100 s without them): 1. no
+# kernels-a-call trace of a SHARED_FR curve's scalar-field kernels
+# (BN254's binaries, traced in BN254's phase 3); 2. and 3. plonk and g16
+# over BLS12-381 at 2^18 (phase 6's BLS12-381 kernels then on the 2^18
+# key's columns and setup), every check kept
+CELL_LOG = {("plonk", "bls12_381"): 18, ("g16", "bls12_381"): 18}
 HBM_BYTES_PER_S = 3.35e12
 DEV = "cuda"          # the card; a rehearsal may set "cpu"
 N_CHAINS, CHAIN_LEN = 2048, 512      # 2^20 constraints
@@ -185,6 +229,22 @@ C_MAIN = 8            # the bucket MSM's width at 2^20 points; set in main
 
 
 T_START = time.perf_counter()
+
+
+def cell_log(kind, cv):
+    """log2 of the constraints (gates) of phase 5's cell `kind` (g16,
+    plonk) over curve cv."""
+    return CELL_LOG.get((kind, cv), 20)
+
+
+def cell_name(kind, cv):
+    """g16_20 and plonk_20 on BN254; g16_381_18, plonk_377_20,
+    cubic_381_plonk, ... on the curves beyond."""
+    if kind == "cubic":
+        return f"cubic_{cv[-3:]}_plonk"
+    if cv == "bn254":
+        return f"{kind}_20"
+    return f"{kind}_{cv[-3:]}_{cell_log(kind, cv)}"
 
 
 def log(*a):
@@ -1018,7 +1078,7 @@ def phase_main(res):
     return pk.g1_a[0].shape[0], cs, pk, proofs[0]
 
 
-def three_proves(res, cs, pk, what):
+def three_proves(res, cs, pk, what, chains=N_CHAINS):
     """Three Groth16 proves of the squaring chain with every launch count
     set to 0 first: each MSM runs the digit kernel, K4 and K9 once and
     K3 not at all, each computeH one mont_mul_sub_mul, 14 K2 launches
@@ -1037,7 +1097,7 @@ def three_proves(res, cs, pk, what):
         wr.launches = 0
     proofs = []
     for i in range(3):
-        sec = [(i * 7919 + j + 2) for j in range(N_CHAINS)]
+        sec = [(i * 7919 + j + 2) for j in range(chains)]
         tm = {}
         t = time.perf_counter()
         proof = groth16.prove(cs, pk, [], sec, rng=random.Random(100 + i),
@@ -1186,9 +1246,10 @@ def phase_setup(res, cs, rng):
     return ladder_sc, (pk.g1_a, pk.g2_b)
 
 
-def phase_g16_2(res, rng, cv=CURVE2):
-    """g16_381_20: bench.py's g16_20 squaring chain (2^20 constraints)
-    over the second curve's scalar field: setup on the card (one ladder
+def phase_g16_2(res, rng, cv):
+    """g16_381_18 / g16_377_20: bench.py's g16_20 squaring chain (2^20
+    constraints; 2^cell_log) over curve cv's scalar field: setup on the
+    card (one ladder
     and one affine_words launch a group), 64 sampled points of each key
     column against host scalar multiplications, three proves (each MSM
     the digit kernel, K4 and K9 once, K3 none; 14 K2 and 4 K1 launches
@@ -1204,18 +1265,19 @@ def phase_g16_2(res, rng, cv=CURVE2):
     from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.ntt import get_domain
-    what = "g16_381_20"
+    what, lg = cell_name("g16", cv), cell_log("g16", cv)
+    chains = N_CHAINS >> (20 - lg)
     curve = curves.CURVES[cv]
     t = time.perf_counter()
-    cs = synth_square_chain(N_CHAINS, CHAIN_LEN, curve.fr)
+    cs = synth_square_chain(chains, CHAIN_LEN, curve.fr)
     log(f"{what}: circuit {cs.summary()} built in "
         f"{time.perf_counter() - t:.2f} s")
     pk, vk, launches = timed_setup(cs, what, cv)
-    check(pk.domain_n == 1 << 20, f"{what}: N = {pk.domain_n}, not 2^20")
+    check(pk.domain_n == 1 << lg, f"{what}: N = {pk.domain_n}, not 2^{lg}")
     for k in ("batch_scalar_mul", "affine_words"):
         res[k]["launches"] = launches[k]
     t = time.perf_counter()
-    s = check_key(cs, pk, vk, rng, k=24)   # BLS12-381's host products
+    s = check_key(cs, pk, vk, rng, k=24)   # 12-word host products
     log(f"{what} key: 24 sampled points of each of the five columns, the "
         f"five host points and the vk equal [s] G for the recomputed "
         f"scalars (checked in {time.perf_counter() - t:.1f} s)")
@@ -1223,10 +1285,10 @@ def phase_g16_2(res, rng, cv=CURVE2):
     get_domain(get_ff(curve.fr.name), pk.domain_n, DEV)  # its K1 tables
     sync()
     log(f"{what}: domain tables in {time.perf_counter() - t:.2f} s")
-    proofs = three_proves(res, cs, pk, what)
+    proofs = three_proves(res, cs, pk, what, chains)
     t = time.perf_counter()
     try:
-        check_prove(cs, pk, [], [j + 2 for j in range(N_CHAINS)],
+        check_prove(cs, pk, [], [j + 2 for j in range(chains)],
                     random.Random(7), logs=setup_logs(cs, s))
     except CheckError as e:
         raise Fail(f"{what}: {e}")
@@ -1405,7 +1467,7 @@ def make_put(res, rate):
 def phase_times(res, rng, n_pts, ladder_sc, key_cols, cv="bn254",
                 n=1 << 20):
     """Each kernel of curve cv's builds at the shapes its path gives it
-    (a domain of n; for K4 and K9 the g16_20 / g16_381_20 setup key's A
+    (a domain of n; for K4 and K9 the g16_20 / g16_381_18 setup key's A
     (G1) and B (G2) columns, 2^20 + 2049 distinct points, with random
     scalars, at the main path's width, the grouping and the two passes
     also timed apart; a stage of 2^13 for K5, the G1 and G2 setup
@@ -1414,10 +1476,21 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, cv="bn254",
     timed, and held against its plain version on the same inputs (the
     ladder also against the per-bit K7 + K6 sequence on the card); a
     disagreement fails the run. BN254 also checks a 2^25 domain's round
-    trip."""
+    trip. A SHARED_FR curve (its scalar field on BN254's binaries) times
+    its own point builds, K4 and K9 (no width sweep), the ladder and the
+    affine kernel, and on its constants a 2^20 K2 transform and K14
+    (times_shared_fr, in --quick, the other scalar-field kernels of its
+    paths)."""
     import torch
     rate = int_mul_rate()
     put = make_put(res, rate)
+    if cv in SHARED_FR:
+        times_k4_k9(res, rate, put, key_cols, cv)
+        times_ladder(res, rate, put, ladder_sc, plain_rows=0, cv=cv)
+        torch.cuda.empty_cache()
+        times_fourstep(res, put, rng, n, cv)
+        times_numerator(res, put, rng, n, cv)
+        return
     times_k1_k3(put, rng, n, cv)
     times_k4_k9(res, rate, put, key_cols, cv)
     sweep_widths(key_cols, cv)
@@ -1444,7 +1517,6 @@ def times_k1_k3(put, rng, n, cv="bn254"):
     from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
                                             proj_double, proj_double_plain)
     from gnark_tpu_torch.ff import get_ff
-    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
     from gnark_tpu_torch.msm.bucket import curve_b3
     from gnark_tpu_torch.ntt.fourstep import (root_powers, row_fft,
                                               row_fft_plain, row_plan,
@@ -1452,13 +1524,7 @@ def times_k1_k3(put, rng, n, cv="bn254"):
     c = curves.CURVES[cv]
     fr = get_ff(c.fr.name)
     res = put.res
-
-    a, b = rand_words(fr, n, rng), rand_words(fr, n, rng)
-    ms, got = timed(lambda: mont_mul(fr, a, b))
-    pms, want = timed(lambda: mont_mul_plain(fr, a, b), 3)
-    put("mont_mul", "", [n, 8], ms, pms, 3 * n * 32, n * MUL_OPS["mul"],
-        max_abs(got, want))
-    del a, b, got, want
+    times_mont_mul(put, rng, n, cv)
     S = 1 << (n.bit_length() // 2)                 # row length, as FourStep
     x = rand_words(fr, n, rng).reshape(n // S, S, 8)
     pw = torch.as_tensor(root_powers(fr, S, fr.p.root_of_unity(S)),
@@ -1491,6 +1557,30 @@ def times_k1_k3(put, rng, n, cv="bn254"):
             w * ops[k], max(max_abs(u, v) for u, v in zip(got, want)))
 
 
+def times_shared_fr(res, rng, cv, n=1 << 20):
+    """The scalar-field kernels of a SHARED_FR curve's paths that its
+    phase 6 leaves out (BN254's binaries on its constants), at their
+    paths' shapes against their plain versions: K1, K5, mont_mul_sub_mul
+    and K10-K13."""
+    put = make_put(res, int_mul_rate())
+    times_mont_mul(put, rng, n, cv)
+    times_k5(res, put, rng, cv)
+    times_computeh(res, put, rng, n, cv)
+    times_ff_ops(res, put, rng, n, cv, two_n=False, numerator=False)
+
+
+def times_mont_mul(put, rng, n, cv="bn254"):
+    """K1's product over a domain of n of curve cv's scalar field."""
+    from gnark_tpu_torch.ff import get_ff
+    from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
+    fr = get_ff(f"{cv}_fr")
+    a, b = rand_words(fr, n, rng), rand_words(fr, n, rng)
+    ms, got = timed(lambda: mont_mul(fr, a, b))
+    pms, want = timed(lambda: mont_mul_plain(fr, a, b), 3)
+    put("mont_mul", "", [n, 8], ms, pms, 3 * n * 32, n * MUL_OPS["mul"],
+        max_abs(got, want))
+
+
 def times_k8(put, n_pts, cv="bn254"):
     """K8 at the scan path's widest shape before the group fold became
     one launch (the first halving step of a wire MSM's fold: W * G/2 *
@@ -1515,7 +1605,8 @@ def times_k8(put, n_pts, cv="bn254"):
     for g2 in (False, True):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
         Lw = _lw(ff)
-        P = tuple(rand_dev_words(wide, Lw, gen_t, nw) for _ in range(6))
+        P = tuple(rand_dev_words(wide, Lw, gen_t, nw, c.fp.modulus)
+                  for _ in range(6))
         pn = 1 << 16
         sl_ = tuple(a[:pn] for a in P)
         op, sfx = ("2", "_g2") if g2 else ("", "")
@@ -1546,7 +1637,8 @@ def times_fold(put, ff, Lw, op, sfx, W, G, B, gen_t, plain_cols=1024,
     import torch
     from gnark_tpu_torch.ec.jac_ec import jac_add, jac_fold, jac_fold_plain
     N = W * G * B
-    P = tuple(rand_dev_words(N, Lw, gen_t, nw) for _ in range(3))
+    P = tuple(rand_dev_words(N, Lw, gen_t, nw, ff.p.modulus)
+              for _ in range(3))
     ms, got = timed(lambda: jac_fold(ff, P, G, B), 3)
 
     def tree():
@@ -1772,7 +1864,8 @@ def times_k6_k7(put, ladder_sc, cv="bn254"):
         npts = sc.shape[0]
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
         Lw = _lw(ff)
-        P = tuple(rand_dev_words(npts, Lw, gen_t, nw) for _ in range(3))
+        P = tuple(rand_dev_words(npts, Lw, gen_t, nw, c.fp.modulus)
+                  for _ in range(3))
         bx, by = affine_words(ff, [c.g2 if g2 else c.g1])
         mask = torch.rand(npts, device=DEV, generator=gen_t) < 0.5
         pn = 1 << 16
@@ -1981,7 +2074,7 @@ def times_k4_k9(res, rate, put, key_cols, cv="bn254"):
         b3 = _b3(ff)
         x, y, inf = _flat_points(ff, col)
         n, Lw = x.shape
-        sc = rand_dev_words(n, 8, gen_t)
+        sc = rand_dev_words(n, 8, gen_t, q=c.fr.modulus)
         op, gs = ("2", "_g2") if g2 else ("", "")
         # at the path's width only (c = 8's plain K4 and K9 took ~30 s a
         # curve of the time limit; phase 3 holds c = 8 on 4,096 points)
@@ -2056,7 +2149,7 @@ def sweep_widths(key_cols, cv="bn254"):
     for g2, col in ((False, key_cols[0]), (True, key_cols[1])):
         ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
         n0 = col[0].shape[0]
-        sc = rand_dev_words(n0, 8, gen_t)
+        sc = rand_dev_words(n0, 8, gen_t, q=c.fr.modulus)
         for n in (n0, 1 << 16, 1 << 13):
             pts = tuple(a[:n] for a in col)
             row, first = {}, None
@@ -2076,15 +2169,19 @@ def sweep_widths(key_cols, cv="bn254"):
         torch.cuda.empty_cache()
 
 
-def rand_dev_words(n, lw, gen, nw=8):
+def rand_dev_words(n, lw, gen, nw=8, q=None):
     """(n, lw) random words made on the card; the top word of each
     nw-word element is cut below 0x30000000 (8 words: < p for both BN254
     fields and BLS12-381's scalar field) or 0x10000000 (12 words: < p for
-    BLS12-381's base field)."""
+    BLS12-381's base field), that mask halved while it is not below the
+    top word of q, the modulus if given (BLS12-377's fields)."""
     import torch
     w = torch.randint(-2 ** 31, 2 ** 31, (n, lw), dtype=torch.int64,
                       device=DEV, generator=gen).to(torch.int32)
-    w[:, nw - 1::nw] &= 0x2FFFFFFF if nw == 8 else 0x0FFFFFFF
+    mask = 0x2FFFFFFF if nw == 8 else 0x0FFFFFFF
+    while q is not None and mask >= q >> (32 * (nw - 1)):
+        mask >>= 1
+    w[:, nw - 1::nw] &= mask
     return w
 
 
@@ -2112,7 +2209,7 @@ def dev_rows(ff, n, gen, zeros=()):
     """n random canonical rows made on the card, every third one lifted
     into [p, 2p), the given rows zero (0 and p in turn)."""
     import torch
-    w = lift_p(ff, rand_dev_words(n, ff.nw, gen),
+    w = lift_p(ff, rand_dev_words(n, ff.nw, gen, ff.nw, ff.p.modulus),
                torch.arange(1, n, 3, device=DEV))
     z = torch.as_tensor(list(zeros), dtype=torch.int64, device=DEV)
     w[z] = 0
@@ -2203,10 +2300,13 @@ def phase_kernels_ff_ops(rng, res, cv="bn254"):
     last; K14 at n = 1, 255, 256, 257 and 2^16 + 3 with one Z_H and a
     period-4 table, also against the K1 / K10 / K11 sequence it
     replaced. Then the CUDA kernels one call of each starts, by the
-    profiler in a fresh process (kernel_counts). On the second curve's builds (the same sources in the sound
-    class) the sizes past 2^20 that exercise the tiles' geometry (K11 at
-    256 tiles and 2^21, K12 at 2^22 + 1 and 2^24 + 3, K13 at 2^18 + 1)
-    are left to BN254's run."""
+    profiler in a fresh process (kernel_counts). On BLS12-381's builds
+    (the same sources in the sound class) the sizes past 2^20 that
+    exercise the tiles' geometry (K11 at 256 tiles and 2^21, K12 at 2^22
+    + 1 and 2^24 + 3, K13 at 2^18 + 1) are left to BN254's run; on a
+    SHARED_FR curve (BN254's builds on its own constants) the sizes
+    stop at 2^16 + 3 rows, and there is no trace (BN254's binaries,
+    traced in BN254's phase 3)."""
     import torch
     from gnark_tpu_torch.backend.plonk_num import plonk_numerator
     from gnark_tpu_torch.ff import get_ff, ops
@@ -2219,7 +2319,8 @@ def phase_kernels_ff_ops(rng, res, cv="bn254"):
               f"plain version")
         err[name] = max(err[name], max_abs(got, want))
 
-    for n in (1, 5, 2049, 1 << 16, 1 << 20):
+    shared = cv in SHARED_FR
+    for n in (1, 5, 2049, 1 << 16) + (() if shared else (1 << 20,)):
         a = rand_words(fr, n, rng, lazy=n // 3)
         b = rand_words(fr, n, rng, lazy=n // 3)
         if n > 1:                   # zeros: p (lazy) and 0
@@ -2254,8 +2355,8 @@ def phase_kernels_ff_ops(rng, res, cv="bn254"):
     T = ops.SCAN_TILE
     scan_cases = {"a zero inside": dev_rows(fr, 5 * T + 7, gen,
                                             [3 * T + 100])}
-    for n in (T - 1, T, T + 1, 1 << 20) + (((1 << 22) + 1, (1 << 24) + 3)
-                                           if full else ()):
+    for n in (T - 1, T, T + 1) + (() if shared else (1 << 20,)) + \
+            (((1 << 22) + 1, (1 << 24) + 3) if full else ()):
         scan_cases[n] = dev_rows(fr, n, gen)
     for what, a in scan_cases.items():
         agree("scan_mul", ops.scan_mul(fr, a), scan_plain(fr, a), what)
@@ -2281,14 +2382,21 @@ def phase_kernels_ff_ops(rng, res, cv="bn254"):
     del cols, pts, got
     for k, v in err.items():
         res[k]["max_abs_err"] = v
+    big = "" if shared else ", 2^20"
     log(f"K10 ff_addsub, K11 batch_inv, K12 scan_mul, K13 dot {cv}: n = 1, 5, "
-        "2049, 2^16, 2^20 with lazy inputs and zeros; K11 on a tile of "
-        "zeros, all zeros, one nonzero row, n = 2047, 2048, 2049, 2^19, "
-        "2^19 + 1, 2^21; K12 with a zero inside and at n = 8191, 8192, "
-        "8193, 2^20, 2^22 + 1, 2^24 + 3; K13 dot and dot_many (1, 5, 9 "
-        "columns of unequal lengths) at n = 1, 256, 257, 2^18 + 1; K14 at "
-        "n = 1, 255, 256, 257, 2^16 + 3, period 1 and 4, also against the "
-        "K1 / K10 / K11 sequence: bit-exact against their plain versions")
+        f"2049, 2^16{big} with lazy inputs (a first row at 2p - 1) and "
+        f"zeros; K11 on a tile of zeros, all zeros, one nonzero row, n = "
+        f"2047, 2048, 2049{', 2^19, 2^19 + 1, 2^21' if full else ''}; K12 "
+        f"with a zero inside and at n = 8191, 8192, 8193{big}"
+        f"{', 2^22 + 1, 2^24 + 3' if full else ''}; K13 dot and dot_many "
+        f"(1, 5, 9 columns of unequal lengths) at n = 1, 256, 257"
+        f"{', 2^18 + 1' if full else ''}; K14 at n = 1, 255, 256, 257, "
+        f"2^16 + 3, period 1 and 4, also against the K1 / K10 / K11 "
+        f"sequence: bit-exact against their plain versions")
+    if shared:
+        log(f"CUDA kernels a call of K10-K14 {cv}: not traced (BN254's "
+            f"binaries, traced in BN254's phase 3)")
+        return
     seen = kernel_counts(cv)
     if not any(seen.values()):
         log(f"CUDA kernels a call of K10-K14 {cv}: not measured (the "
@@ -2340,7 +2448,20 @@ def traced_ff_ops(cv):
              "plonk_numerator": lambda: plonk_numerator(fr, cols, pts, sc)}
     for fn in calls.values():      # loads the libraries outside the trace
         fn()
-    return {k: cuda_kernels(fn) for k, fn in calls.items()}
+    # the profiler's first session in a process can miss the kernels it
+    # should see: one is thrown away first
+    cuda_kernels(calls["ff_addsub"])
+    wrappers = {w.__name__: w for w in all_wrappers()}
+    seen = {}
+    for k, fn in calls.items():
+        for _ in range(3):
+            n0 = wrappers[k].launches
+            seen[k] = cuda_kernels(fn)
+            # an empty trace of a call its wrapper says launched is the
+            # profiler's miss, not the call's: it is taken again
+            if seen[k] or wrappers[k].launches == n0:
+                break
+    return seen
 
 
 def tampered_plonk(proof, curve):
@@ -2358,11 +2479,11 @@ def tampered_plonk(proof, curve):
 def phase_plonk_small(res, cv="bn254"):
     """mimc_plonk (examples/mimc_plonk.py's circuit, SRS 2048) and
     rc_plonk (PLONK_RC_VALUES values through std/rangecheck: one BSB22
-    commitment), or on the second curve cubic_381_plonk
-    (examples/cubic.py's): the SRS and setup on the card, a prove on the
-    card (cubic_381_plonk: and the same prove on the CPU, the keys copied
-    over, with equal bytes), verify, and a wrong public value or a
-    tampered pi2 commitment (rc_plonk) refused."""
+    commitment), or on a curve beyond BN254 cubic_381_plonk /
+    cubic_377_plonk (examples/cubic.py's): the SRS and setup on the card,
+    a prove on the card (the cubic: and the same prove on the CPU, the
+    keys copied over, with equal bytes), verify, and a wrong public value
+    or a tampered pi2 commitment (rc_plonk) refused."""
     import dataclasses
     from gnark_tpu_torch.backend import kzg, plonk
     from gnark_tpu_torch.backend.groth16_check import (
@@ -2377,8 +2498,8 @@ def phase_plonk_small(res, cv="bn254"):
              ("rc_plonk", RangeChecked(PLONK_RC_VALUES),
               range_checked_assignment(PLONK_RC_VALUES, 5), None)) \
         if cv == "bn254" else \
-        (("cubic_381_plonk", Cubic(), Cubic(x=3, y=35), 64),)
-    # the card's proof against the CPU's: the second curve's cubic (the
+        ((cell_name("cubic", cv), Cubic(), Cubic(x=3, y=35), 64),)
+    # the card's proof against the CPU's: the other curves' cubic (the
     # BN254 cells' CPU halves, 36-68 s, are tests/test_torch_cuda.py's
     # test_plonk_card_equals_cpu)
     cpu_half = cv != "bn254"
@@ -2438,7 +2559,8 @@ def phase_plonk_small(res, cv="bn254"):
 
 def phase_plonk20(res, cv="bn254"):
     """plonk_20: BN254 PLONK on 2^20 - 1 squaring-chain gates, N = 2^20
-    (the rho path): an SRS of 2^20 + 8 (one ladder and one affine_words
+    (the rho path; plonk_381_18, plonk_377_20 over the other curves, N =
+    2^cell_log): an SRS of N + 8 (one ladder and one affine_words
     launch), setup, three proves with every launch count set to 0 first
     (K10-K14, K1, K2 and the bucket MSM must launch; K3 and K5 must
     not; each steady prove: K14 once a shift, K11 3, K12 8, K13 three
@@ -2450,19 +2572,20 @@ def phase_plonk20(res, cv="bn254"):
     from gnark_tpu_torch.backend.plonk_device import RHO_MIN_LOG
     from gnark_tpu_torch.ec import curves
     from gnark_tpu_torch.msm.fixed_base import affine_words, batch_scalar_mul
-    what = "plonk_20" if cv == "bn254" else "plonk_381_20"
+    what, lg = cell_name("plonk", cv), cell_log("plonk", cv)
+    chains = PLONK_CHAINS >> (20 - lg)
     t = time.perf_counter()
-    cs = plonk_square_chain(PLONK_CHAINS, PLONK_LEN, curves.CURVES[cv].fr)
+    cs = plonk_square_chain(chains, PLONK_LEN, curves.CURVES[cv].fr)
     log(f"{what}: circuit {cs.summary()} built in "
         f"{time.perf_counter() - t:.2f} s")
     for wr in (batch_scalar_mul, affine_words):
         wr.launches = 0
     tm = {}
     t = time.perf_counter()
-    srs = kzg.setup_srs(cv, PLONK_CHAINS * PLONK_LEN + 8,
+    srs = kzg.setup_srs(cv, chains * PLONK_LEN + 8,
                         rng=random.Random(3), device=DEV, timings=tm)
     tm["total"] = time.perf_counter() - t
-    log(f"{what} SRS of 2^20 + 8 (s): {fmt_times(tm)}")
+    log(f"{what} SRS of 2^{lg} + 8 (s): {fmt_times(tm)}")
     check(batch_scalar_mul.launches == 1 and affine_words.launches == 1,
           f"{what} SRS: not one ladder and one affine_words launch")
     tm = {}
@@ -2470,14 +2593,14 @@ def phase_plonk20(res, cv="bn254"):
     pk, vk = plonk.setup(cs, srs, timings=tm)
     tm["total"] = time.perf_counter() - t
     log(f"{what} setup (s): {fmt_times(tm)}")
-    check(vk.size == 1 << 20, f"{what}: N = {vk.size}, not 2^20")
+    check(vk.size == 1 << lg, f"{what}: N = {vk.size}, not 2^{lg}")
     check(vk.size >= 1 << RHO_MIN_LOG,
           f"{what} would not take the rho path")
 
     wrappers = all_wrappers()
     for wr in wrappers:
         wr.launches = 0
-    sec = [i + 2 for i in range(PLONK_CHAINS)]
+    sec = [i + 2 for i in range(chains)]
     proofs = []
     # a steady prove's calls: exactly, or at most (K1, K10)
     want = {"plonk_numerator": 4, "batch_inv": 3, "scan_mul": 8,
@@ -2525,9 +2648,11 @@ def phase_plonk20(res, cv="bn254"):
     return launches
 
 
-def times_ff_ops(res, put, rng, n=1 << 20, cv="bn254"):
-    """K10-K14 at plonk_20's shapes (N = 2^20; K11 also at the openings'
-    2N), each against its plain version on the same inputs. Bounds: K10
+def times_ff_ops(res, put, rng, n=1 << 20, cv="bn254", two_n=True,
+                 numerator=True):
+    """K10-K13 and, if numerator, K14 (times_numerator) at plonk_20's
+    shapes (N = 2^20; K11 also at the openings' 2N if two_n), each
+    against its plain version on the same inputs. Bounds: K10
     the bytes (two reads and a write, or one read and a write with the
     broadcast operand); K11 three products an element (the trick's least
     work; its one inversion a call, ~600 divsteps, not counted); K12 the
@@ -2541,7 +2666,6 @@ def times_ff_ops(res, put, rng, n=1 << 20, cv="bn254"):
     included (ff_ops_times.py gives device time by kernel, beside the
     parent tree's)."""
     import torch
-    from gnark_tpu_torch.backend.plonk_num import plonk_numerator
     from gnark_tpu_torch.ff import get_ff, ops
     fr = get_ff(f"{cv}_fr")
     mul = MUL_OPS["mul"]
@@ -2571,6 +2695,36 @@ def times_ff_ops(res, put, rng, n=1 << 20, cv="bn254"):
     log(f"dot_many {cv} [5, {n}, 8]: {ms:.4f} ms; five dot calls "
         f"{ms5:.4f} ms")
     del cols, got5
+    if numerator:
+        times_numerator(res, put, rng, n, cv, gen)
+    ms, got = timed(lambda: ops.scan_mul(fr, a))
+    pms, want = timed(lambda: ops.scan_mul_plain(fr, a), 1)
+    put("scan_mul", "", [n, 8], ms, pms, 2 * n * 32, (n - 1) * mul,
+        max_abs(got, want))
+    log(f"scan_mul {[n, 8]}: two products an element (the kernel's work) "
+        f"{bound_ms(0, 2 * n * mul, put.rate)[0]:.4f} ms at the card's "
+        f"product rate")
+    for sfx, m in (("", n), ("_2n", 2 * n))[:2 if two_n else 1]:
+        x = rand_words(fr, m, rng) if m != n else a
+        ms, got = timed(lambda: ops.batch_inv(fr, x))
+        pms, want = timed(lambda: ops.batch_inv_plain(fr, x), 1,
+                          warm=False)
+        put("batch_inv", sfx, [m, 8], ms, pms, 2 * m * 32, 3 * m * mul,
+            max_abs(got, want))
+    del a, b, x, got, want
+
+
+def times_numerator(res, put, rng, n=1 << 20, cv="bn254", gen=None):
+    """K14 at plonk_20's shape (one shift) against its plain version and
+    against the K1 / K10 / K11 sequence it replaced, on the same
+    inputs."""
+    import torch
+    from gnark_tpu_torch.backend.plonk_num import plonk_numerator
+    from gnark_tpu_torch.ff import get_ff
+    fr = get_ff(f"{cv}_fr")
+    if gen is None:
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(5)
     cols, pts, sc = num_case(fr, n, 1, gen, rng)
     ms, got = timed(lambda: plonk_numerator(fr, cols, pts, sc))
     pms, want = timed(lambda: num_plain(fr, cols, pts, sc), 1, False)
@@ -2583,21 +2737,6 @@ def times_ff_ops(res, put, rng, n=1 << 20, cv="bn254"):
     log(f"plonk_numerator {cv} [{n}, 8]: {ms:.4f} ms; the K1 / K10 / K11 "
         f"sequence it replaced (45 launches) {sms:.4f} ms; the bytes "
         f"alone {bound_ms(16 * n * 32, 0, put.rate)[0]:.4f} ms")
-    del cols, pts, got, want, seq
-    ms, got = timed(lambda: ops.scan_mul(fr, a))
-    pms, want = timed(lambda: ops.scan_mul_plain(fr, a), 1)
-    put("scan_mul", "", [n, 8], ms, pms, 2 * n * 32, (n - 1) * mul,
-        max_abs(got, want))
-    log(f"scan_mul {[n, 8]}: two products an element (the kernel's work) "
-        f"{bound_ms(0, 2 * n * mul, put.rate)[0]:.4f} ms at the card's "
-        f"product rate")
-    for sfx, m in (("", n), ("_2n", 2 * n)):
-        x = rand_words(fr, m, rng) if m != n else a
-        ms, got = timed(lambda: ops.batch_inv(fr, x))
-        pms, want = timed(lambda: ops.batch_inv_plain(fr, x), 1)
-        put("batch_inv", sfx, [m, 8], ms, pms, 2 * m * 32, 3 * m * mul,
-            max_abs(got, want))
-    del a, b, x, got, want
 
 
 # ---------------------------------------------------------------------------
@@ -2681,6 +2820,90 @@ KERNELS = {
 }
 
 
+def step(what, fn, *args):
+    """fn(*args), its wall time and the run's so far logged."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {what}: {time.perf_counter() - t:.1f} s "
+        f"({time.perf_counter() - T_START:.1f} s in all)")
+    return out
+
+
+def phase3(rng, cv, r):
+    step(f"phase 3 {cv} K1-K4, K9", phase_kernels, rng, r, cv)
+    step(f"phase 3 {cv} K5-K8", phase_kernels_jac_ntt, rng, r, cv)
+    step(f"phase 3 {cv} ladder", phase_kernels_ladder, rng, r, cv)
+    step(f"phase 3 {cv} affine", phase_kernels_affine, rng, r, cv)
+    step(f"phase 3 {cv} K10-K14", phase_kernels_ff_ops, rng, r, cv)
+
+
+def result_rows(cv="bn254"):
+    """The kernels line's rows, one a kernel of KERNELS (named
+    "name@cv" beyond BN254), before any phase has filled them."""
+    sfx = "" if cv == "bn254" else f"@{cv}"
+    return {k: {"name": k + sfx, "route": "cuda", "source": s,
+                "replaces": r + ("" if cv == "bn254" else f" ({cv} build)"),
+                "launches": 0, "max_abs_err": None, "ms": None,
+                "plain_ms": None, "bound_ms": None, "bound_by": None,
+                "library_ms": None}
+            for k, (s, r) in KERNELS.items()}
+
+
+def curve_checks(cv):
+    """The checks process of a curve of CURVES2 (--curve-checks cv):
+    once its libraries are in place (the parent's nvcc jobs, which the
+    parent finishes before it starts this process or, for a SHARED_FR
+    curve, right after BN254's), its phase 3
+    and cubic cell, which time nothing the kernels line reports but the
+    plain ladder. Prints its rows as the last line."""
+    from gnark_tpu_torch import cuda
+    from gnark_tpu_torch.msm.bucket import window_bits
+    import torch
+    torch.set_num_threads(2)        # the cubic's CPU prove beside the run
+    global C_MAIN
+    C_MAIN = window_bits(1 << 20, DEV)
+    libs = [cuda._target(n, v)
+            for n, v in cuda.builds([f"{cv}_fp", f"{cv}_fr"])]
+    t = time.perf_counter()
+    while not all(so.exists() for so in libs):
+        check(time.perf_counter() - t < CHECKS_WAIT_S,
+              f"{cv}'s libraries not built in {CHECKS_WAIT_S} s")
+        time.sleep(0.5)
+    log(f"{cv}'s libraries built, waited {time.perf_counter() - t:.1f} s")
+    r = result_rows(cv)
+    phase3(random.Random(CHECKS_SEED), cv, r)
+    step(f"phase 5 {cell_name('cubic', cv)}", phase_plonk_small, r, cv)
+    print(json.dumps(r), flush=True)
+
+
+def start_checks(cv):
+    """Start curve_checks(cv) in a process of its own; its output goes
+    to a temporary file."""
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--curve-checks", cv], stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def join_checks(cv, job):
+    """Wait for the checks process of cv, relay its log and return its
+    rows; raise if it failed."""
+    proc, out = job
+    t = time.perf_counter()
+    proc.wait()
+    out.seek(0)
+    lines = out.read().splitlines()
+    out.close()
+    for line in lines[:-1]:
+        print(f"  [{cv} checks] {line}", flush=True)
+    check(proc.returncode == 0, f"{cv}'s checks process failed: "
+          + "\n".join(lines[-40:]))
+    log(f"{cv}'s checks process (phase 3 and {cell_name('cubic', cv)}) "
+        f"joined, waited {time.perf_counter() - t:.1f} s")
+    return json.loads(lines[-1])
+
+
 def log_builds(built):
     """Each library's build seconds and ptxas's register / spill lines."""
     for k, (sec, out) in sorted(built.items(), key=lambda kv: kv[1][0]):
@@ -2693,7 +2916,6 @@ def log_builds(built):
 
 def main(argv) -> int:
     quick = "--quick" in argv
-    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2712,7 +2934,14 @@ def main(argv) -> int:
         cv = argv[argv.index("--kernel-counts") + 1]
         print(json.dumps(traced_ff_ops(cv)), flush=True)
         return 0
-    second = None
+    if "--curve-checks" in argv:
+        try:
+            curve_checks(argv[argv.index("--curve-checks") + 1])
+        except Fail as e:
+            print(f"chip_smoke: FAILED: {e}", flush=True)
+            return 1
+        return 0
+    later, checks = {}, {}
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2724,68 +2953,70 @@ def main(argv) -> int:
 
         from gnark_tpu_torch import cuda, native
         t = time.perf_counter()
-        # every build starts now, one nvcc each; the second curve's at a
+        # every build starts now, one nvcc each; the other curves' at a
         # lower priority, so that BN254's (wanted first) take the cores,
-        # and they are waited for only before the second curve's phases
-        first = cuda.start_builds(cuda.builds(["bn254_fp", "bn254_fr"]))
-        second = cuda.start_builds(cuda.builds([f"{CURVE2}_fp",
-                                                f"{CURVE2}_fr"]), nice=10)
+        # and each curve's are waited for only before its phases (a
+        # library another curve shares is built once, by the first)
+        def builds_of(cv):
+            t = time.perf_counter()
+            log_builds(cuda.finish_builds(later[cv]))
+            log(f"{cv}'s builds waited for {time.perf_counter() - t:.1f} s")
+
+        seen = cuda.builds(["bn254_fp", "bn254_fr"])
+        first = cuda.start_builds(seen)
+        for cv in CURVES2:
+            pairs = [b for b in cuda.builds([f"{cv}_fp", f"{cv}_fr"])
+                     if b not in seen]
+            seen += pairs
+            later[cv] = cuda.start_builds(pairs, nice=10)
+        if not quick:
+            checks = {cv: start_checks(cv) for cv in SHARED_FR}
         log_builds(cuda.finish_builds(first))
         t1 = time.perf_counter()
         native._lib()
         log(f"build native solver: {time.perf_counter() - t1:.1f} s; "
             f"BN254's builds {time.perf_counter() - t:.1f} s")
+        for cv in checks:   # their libraries in place for the process
+            builds_of(cv)
 
-        res = {k: {"name": k, "route": "cuda", "source": s, "replaces": r,
-                   "launches": 0, "max_abs_err": None, "ms": None,
-                   "plain_ms": None, "bound_ms": None, "bound_by": None,
-                   "library_ms": None}
-               for k, (s, r) in KERNELS.items()}
-        # the second curve's builds, rows of their own
-        res2 = {k: dict(v, name=f"{k}@{CURVE2}",
-                        replaces=v["replaces"] + f" ({CURVE2} build)")
-                for k, v in res.items()}
+        res = result_rows()
+        # the other curves' kernels, rows of their own
+        resc = {cv: result_rows(cv) for cv in CURVES2}
         from gnark_tpu_torch.msm.bucket import window_bits
         global C_MAIN
         C_MAIN = window_bits(1 << 20, DEV)
         log(f"bucket MSM window width at 2^20 points: c = {C_MAIN}")
         rng = random.Random(2024)
 
-        def step(what, fn, *args):
-            """fn(*args), its wall time and the run's so far logged."""
-            t = time.perf_counter()
-            out = fn(*args)
-            log(f"[time] {what}: {time.perf_counter() - t:.1f} s "
-                f"({time.perf_counter() - t_start:.1f} s in all)")
-            return out
+        def kernels_line():
+            rows = list(res.values())
+            for cv in CURVES2:     # a SHARED_FR curve: the rows it timed
+                rows += [r for r in resc[cv].values()
+                         if cv not in SHARED_FR or r["ms"] is not None]
+            return json.dumps({"kernels": rows})
 
-        def phase3(cv, r):
-            step(f"phase 3 {cv} K1-K4, K9", phase_kernels, rng, r, cv)
-            step(f"phase 3 {cv} K5-K8", phase_kernels_jac_ntt, rng, r, cv)
-            step(f"phase 3 {cv} ladder", phase_kernels_ladder, rng, r, cv)
-            step(f"phase 3 {cv} affine", phase_kernels_affine, rng, r, cv)
-            step(f"phase 3 {cv} K10-K14", phase_kernels_ff_ops, rng, r, cv)
-
-        def second_builds():
-            t = time.perf_counter()
-            log_builds(cuda.finish_builds(second))
-            log(f"{CURVE2}'s builds waited for {time.perf_counter() - t:.1f}"
-                f" s")
-
-        phase3("bn254", res)
+        phase3(rng, "bn254", res)
         if quick:
-            second_builds()
-            phase3(CURVE2, res2)
+            for cv in CURVES2:
+                builds_of(cv)
+                phase3(rng, cv, resc[cv])
             # the transforms and K8 / the fold at their path's shapes (a
             # g16_20 wire MSM: 2^20 + 2049 points, the class of 2^20 + 1)
             put = make_put(res, int_mul_rate())
             times_fourstep(res, put, rng, 1 << 20)
             times_k8(put, (1 << 20) + 1)
             times_ff_ops(res, put, rng)
-            print(json.dumps({"kernels": list(res.values())
-                              + list(res2.values())}), flush=True)
+            for cv in SHARED_FR:
+                times_shared_fr(resc[cv], rng, cv)
+            print(kernels_line(), flush=True)
             print(smi, flush=True)
             return 0
+        for cv in SHARED_FR:
+            resc[cv] = join_checks(cv, checks.pop(cv))
+        for cv in CURVES2:          # beside phases 4 and 5
+            if cv not in SHARED_FR:
+                builds_of(cv)
+                checks[cv] = start_checks(cv)
         n_pts, cs, pk, proof = step("phase 4 g16_20", phase_main, res)
         del pk, proof
         ladder_sc, key_cols = step("phase 5 g16_20 setup", phase_setup, res,
@@ -2795,28 +3026,47 @@ def main(argv) -> int:
         step("phase 5 rc_20", phase_rc20, res)
         step("phase 5 mimc_plonk, rc_plonk", phase_plonk_small, res)
         step("phase 5 plonk_20", phase_plonk20, res)
-        second_builds()
-        phase3(CURVE2, res2)
-        ladder_sc2, key_cols2, n_pts2 = step("phase 5 g16_381_20",
-                                             phase_g16_2, res2, rng)
-        step("phase 5 plonk_381_20", phase_plonk20, res2, CURVE2)
-        step("phase 5 cubic_381_plonk", phase_plonk_small, res2, CURVE2)
+
+        def phases_3_5(cv):
+            """Curve cv's checks process (its phase 3 and cubic cell)
+            waited for, its g16 and plonk cells; returns phase 6's
+            arguments from its g16 cell."""
+            if cv in checks:            # its phase 3 and cubic cell
+                resc[cv] = join_checks(cv, checks.pop(cv))
+            r = resc[cv]
+            ladder_sc2, key_cols2, n_pts2 = step(
+                f"phase 5 {cell_name('g16', cv)}", phase_g16_2, r, rng, cv)
+            step(f"phase 5 {cell_name('plonk', cv)}", phase_plonk20, r, cv)
+            return r, rng, n_pts2, ladder_sc2, key_cols2, cv
+
+        # BLS12-381's phase 5, BN254's phase 6, BLS12-381's; then each
+        # further curve's phases 5 and 6
+        args = phases_3_5(CURVES2[0])
         step("phase 6 bn254", phase_times, res, rng, n_pts, ladder_sc,
              key_cols)
         del ladder_sc, key_cols
-        step(f"phase 6 {CURVE2}", phase_times, res2, rng, n_pts2,
-             ladder_sc2, key_cols2, CURVE2)
+        step(f"phase 6 {CURVES2[0]}", phase_times, *args)
+        for cv in CURVES2[1:]:
+            del args
+            torch.cuda.empty_cache()
+            args = phases_3_5(cv)
+            step(f"phase 6 {cv}", phase_times, *args)
+        del args
         torch.cuda.synchronize()
         log(f"chip_smoke: every phase passed, "
-            f"{time.perf_counter() - t_start:.1f} s in all")
+            f"{time.perf_counter() - T_START:.1f} s in all")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        if second is not None:
-            cuda.stop_builds(second)
-    print(json.dumps({"kernels": list(res.values()) + list(res2.values())}),
-          flush=True)
+        for started in later.values():
+            cuda.stop_builds(started)
+        for proc, out in checks.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    print(kernels_line(), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,9 +5,11 @@
 // half the state of an Fp2 formula: the G2 formulas then need about the
 // registers of G1 (no spills) and twice the threads. Each thread computes
 // one component of every product as a sum of two Montgomery products
-// (c0 = a0 c0' - a1 c1', c1 = a0 c1' + a1 c0'), the pair four, as the
-// schoolbook product; the selects between the lanes' operands are
-// branch-free.
+// (u^2 = -|nr|, |nr| = GT_NR_ABS of mont.cuh: c0 = a0 c0' - |nr| a1 c1',
+// c1 = a0 c1' + a1 c0'), the pair four, as the schoolbook product; the
+// even lane's negative operand is neg2p(|nr| a1), its add chain
+// (mul_nr_abs) keeping it below 2p; the selects between the lanes'
+// operands are branch-free.
 //
 // The proj.cuh formulas take this type as they take Fp and Fp2.
 #pragma once
@@ -57,18 +59,27 @@ __device__ __forceinline__ Fp2s mul_lazy(const Fp2s& a, const Fp2s& c,
   const bool odd = lane_half();
   Fp ao = partner(a.v), co = partner(c.v);
   Fp2s r;
-  r.v = sop2(pick(odd, ao, a.v), c.v, pick(odd, a.v, neg2p(ao, F)), co, F);
+  r.v = sop2(pick(odd, ao, a.v), c.v,
+            pick(odd, a.v, neg2p(mul_nr_abs(ao, F), F)), co, F);
   return r;
 }
 
-// this lane's component of a^2: c0 = (a0 + a1)(a0 - a1), c1 = 2 a0 a1,
-// one product a lane where a * a takes a sum of two
+// this lane's component of a^2. At |nr| = 1: c0 = (a0 + a1)(a0 - a1),
+// c1 = 2 a0 a1, one product a lane where a * a takes a sum of two. That
+// identity holds for u^2 = -1 only; otherwise c0 = a0^2 - |nr| a1^2
+// and c1 = a0 a1 + a1 a0, one sum of two products a lane (the product's
+// form with c = a, one shuffle).
 __device__ __forceinline__ Fp2s sqr_lazy(const Fp2s& a, const FieldC& F) {
   const bool odd = lane_half();
   Fp o = partner(a.v);
   Fp2s r;
+#if GT_NR_ABS == 1
   r.v = mul_lazy(pick(odd, double2p(o, F), add2p(a.v, o, F)),
                  pick(odd, a.v, sub2p(a.v, o, F)), F);
+#else
+  r.v = sop2(pick(odd, o, a.v), a.v,
+             pick(odd, a.v, neg2p(mul_nr_abs(o, F), F)), o, F);
+#endif
   return r;
 }
 
@@ -80,8 +91,10 @@ __device__ __forceinline__ Fp2s sop2(const Fp2s& a, const Fp2s& c,
   Fp ao = partner(a.v), co = partner(c.v);
   Fp dd = partner(d.v), eo = partner(e.v);
   Fp2s r;
-  r.v = sop4(pick(odd, ao, a.v), c.v, pick(odd, a.v, neg2p(ao, F)), co,
-             pick(odd, dd, d.v), e.v, pick(odd, d.v, neg2p(dd, F)), eo, F);
+  r.v = sop4(pick(odd, ao, a.v), c.v,
+             pick(odd, a.v, neg2p(mul_nr_abs(ao, F), F)), co,
+             pick(odd, dd, d.v), e.v,
+             pick(odd, d.v, neg2p(mul_nr_abs(dd, F), F)), eo, F);
   return r;
 }
 

@@ -1,7 +1,7 @@
 // K6 jac_add_mixed, K7 jac_double and K8 jac_add: batched complete
 // Jacobian + affine add (with an infinity mask on the affine operand),
 // Jacobian double and complete Jacobian + Jacobian add, a = 0, over Fp
-// (G1) and Fp2 (G2, u^2 = -1); inputs < 2p, outputs canonical.
+// (G1) and Fp2 (G2, u^2 = -|nr|); inputs < 2p, outputs canonical.
 //
 // Replaces gnark_tpu/ec/pallas_ec.py jac_add_mixed_p, jac_double_p and
 // jac_add_p (formulas _jac_add_mixed_t, _jac_double_t and _jac_add_t,

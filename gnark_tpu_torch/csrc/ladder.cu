@@ -1,5 +1,5 @@
 // Fixed-base ladder: R_i = [s_i] B for one affine base point B and n
-// scalars s_i, Jacobian, over Fp (G1) and Fp2 (G2, u^2 = -1); output
+// scalars s_i, Jacobian, over Fp (G1) and Fp2 (G2, u^2 = -|nr|); output
 // canonical. Setup's device work: every key column is a batch of such
 // products (gnark-crypto BatchScalarMultiplicationG1/G2).
 //

@@ -1,6 +1,7 @@
 // Montgomery arithmetic over GT_NW x 32-bit words (set by the build: 8
-// for the BN254 fields and BLS12-381's scalar field, 12 for BLS12-381's
-// base field), and its Fp2 lift (u^2 = -1).
+// for the BN254 fields and the BLS12 scalar fields, 12 for the BLS12
+// base fields), and its Fp2 lift, u^2 = -GT_NR_ABS (set by the build: 1
+// for BN254 and BLS12-381, 5 for BLS12-377).
 //
 // Counterpart of gnark_tpu/ff/pallas_mont.py (TFF) and
 // gnark_tpu/ff/pallas_fp2.py (TFF2). Not a kernel: device functions that
@@ -53,6 +54,10 @@
 #ifndef GT_NOINLINE
 #define GT_NOINLINE 0  // 1: the Fp products as called functions
 #endif
+#ifndef GT_NR_ABS
+#define GT_NR_ABS 1    // Fp2 = Fp[u]/(u^2 + GT_NR_ABS)
+#endif
+static_assert(GT_NR_ABS >= 1 && GT_NR_ABS <= 8, "|u^2| is 1 to 8");
 static_assert(GT_NW % 4 == 0, "an element is whole 16-byte vectors");
 
 #if GT_NOINLINE
@@ -667,16 +672,33 @@ __device__ Fp by_inv(const Fp& z, const FieldC& F) {
 #endif
 
 // ---------------------------------------------------------------------
-// Fp2 = Fp[u]/(u^2 + 1), per component in the class of Fp (TFF2 with
-// |nr| = 1)
+// Fp2 = Fp[u]/(u^2 + GT_NR_ABS), per component in the class of Fp (TFF2,
+// nr = -GT_NR_ABS)
 // ---------------------------------------------------------------------
 
+// GT_NR_ABS a by an add chain (gnark_tpu/ff/pallas_fp2.py _mul_nr_abs):
+// in < 2p, out < 2p, each step an add2p; a itself at GT_NR_ABS = 1
+__device__ __forceinline__ Fp mul_nr_abs(const Fp& a, const FieldC& F) {
+  Fp r = a, cur = a;
+  bool have = GT_NR_ABS & 1;
+#pragma unroll
+  for (int k = GT_NR_ABS >> 1; k; k >>= 1) {
+    cur = double2p(cur, F);
+    if (k & 1) {
+      r = have ? add2p(r, cur, F) : cur;
+      have = true;
+    }
+  }
+  return r;
+}
+
+// c0 = t0 - |nr| t1, c1 = (a0 + a1)(c0 + c1) - t0 - t1 (Karatsuba)
 __device__ __forceinline__ Fp2 mul_lazy(const Fp2& a, const Fp2& c,
                                         const FieldC& F) {
   Fp t0 = mul_lazy(a.c0, c.c0, F);
   Fp t1 = mul_lazy(a.c1, c.c1, F);
   Fp2 r;
-  r.c0 = sub2p(t0, t1, F);
+  r.c0 = sub2p(t0, mul_nr_abs(t1, F), F);
   Fp m = mul_lazy(add2p(a.c0, a.c1, F), add2p(c.c0, c.c1, F), F);
   r.c1 = sub2p(sub2p(m, t0, F), t1, F);
   return r;
@@ -687,11 +709,12 @@ __device__ __forceinline__ Fp2 sqr_lazy(const Fp2& a, const FieldC& F) {
   return mul_lazy(a, a, F);
 }
 
-// a*c + d*e: r0 = a0c0 - a1c1 + d0e0 - d1e1, r1 = a0c1 + a1c0 + d0e1 + d1e0
+// a*c + d*e: r0 = a0c0 - |nr| a1c1 + d0e0 - |nr| d1e1 (the negative
+// terms as neg2p operands, each < 2p), r1 = a0c1 + a1c0 + d0e1 + d1e0
 __device__ __forceinline__ Fp2 sop2(const Fp2& a, const Fp2& c, const Fp2& d,
                                     const Fp2& e, const FieldC& F) {
-  Fp na1 = neg2p(a.c1, F);
-  Fp nd1 = neg2p(d.c1, F);
+  Fp na1 = neg2p(mul_nr_abs(a.c1, F), F);
+  Fp nd1 = neg2p(mul_nr_abs(d.c1, F), F);
   Fp2 r;
   r.c0 = sop4(a.c0, c.c0, na1, c.c1, d.c0, e.c0, nd1, e.c1, F);
   r.c1 = sop4(a.c0, c.c1, a.c1, c.c0, d.c0, e.c1, d.c1, e.c0, F);

@@ -6,7 +6,8 @@
 //   gt_mont_mul_sub_mul  out = (a * b - c) * d[i or 0]   (Montgomery)
 //   gt_jac_to_affine     Jacobian (X, Y, Z) -> affine (X / Z^2, Y / Z^3),
 //                        infinity (Z = 0) -> (0, 0); G1 over Fp, or G2
-//                        over Fp2 = Fp[u]/(u^2 + 1), one launch a group
+//                        over Fp2 = Fp[u]/(u^2 + |nr|), one launch a
+//                        group
 //
 // Replaces gnark_tpu/ff/pallas_ops.py mul_p (elementwise Montgomery
 // product with a broadcast operand: coset and n^-1 scaling) and
@@ -70,8 +71,9 @@ __global__ void mont_mul_sub_mul_kernel(const uint32_t* __restrict__ a,
 
 // Jacobian -> affine for the points i = t, t + T, t + 2T, ... < n of
 // thread t (adjacent threads on adjacent points), by Montgomery's batch
-// inversion of their denominators d_i (G1: Z; G2 (u^2 = -1): the norm
-// z0^2 + z1^2, since 1 / (z0 + z1 u) = (z0 - z1 u) / (z0^2 + z1^2)):
+// inversion of their denominators d_i (G1: Z; G2 (u^2 = -|nr|): the norm
+// z0^2 + |nr| z1^2, since 1 / (z0 + z1 u) = (z0 - z1 u) / (z0^2 + |nr|
+// z1^2)):
 //   forward:  acc = prod of the nonzero d_i so far, written to x[i]
 //             (G2: d_i beside it, in x[i]'s second half);
 //   one fermat_inv of acc;
@@ -94,7 +96,7 @@ __global__ void __launch_bounds__(128)
     if (G2) {
       Fp2 z;
       ld(z, Z + i * W);
-      d = add2p(sqr_lazy(z.c0, F), sqr_lazy(z.c1, F), F);
+      d = add2p(sqr_lazy(z.c0, F), mul_nr_abs(sqr_lazy(z.c1, F), F), F);
       st(x + i * W + GT_NW, d);
     } else {
       ld(d, Z + i * W);

@@ -4,9 +4,10 @@ Each source csrc/<name>.cu is compiled by nvcc, alone, into a shared
 library with a plain C interface under gnark_tpu_torch/_build/ (named by
 a hash of the sources and flags, so a stale build is never reused), and
 loaded with ctypes. A source is built once for each variant its fields
-need: the element's word count (GT_NW) and the arithmetic class
-(GT_SOUND) of csrc/mont.cuh, each variant a library of its own name
-(scalars are GT_SW = 8 words in every build). Nothing is built when a
+need: the element's word count (GT_NW), the arithmetic class (GT_SOUND)
+of csrc/mont.cuh and, for a base field, its Fp2's |u^2| (GT_NR_ABS),
+each variant a library of its own name (scalars are GT_SW = 8 words in
+every build). Nothing is built when a
 module is imported: the first launch of a kernel builds its library, and
 `start_builds` / `finish_builds` build all of them at once, one nvcc
 process per source and variant, started together.
@@ -52,13 +53,16 @@ class KernelField(NamedTuple):
     nr: int | None = None
 
 
-# Fields the kernels take. BLS12-377 (nr = -5) and BW6-761 (24-word Fp,
-# G2 over Fp) are not among them.
+# Fields the kernels take: BN254, BLS12-381 and BLS12-377 (its Fp2 with
+# u^2 = -5; its scalar field on BN254's 8-word lazy builds). BW6-761
+# (24-word Fp, G2 over Fp) is not among them.
 KERNEL_FIELDS = {
     "bn254_fp": KernelField(nw=8, sound=False, base=True, nr=-1),
     "bn254_fr": KernelField(nw=8, sound=False, base=False),
     "bls12_381_fp": KernelField(nw=12, sound=False, base=True, nr=-1),
     "bls12_381_fr": KernelField(nw=8, sound=True, base=False),
+    "bls12_377_fp": KernelField(nw=12, sound=False, base=True, nr=-5),
+    "bls12_377_fr": KernelField(nw=8, sound=False, base=False),
 }
 # The sources a base field's (points) and a scalar field's kernels need.
 BASE_SOURCES = ("mont_mul", "proj_ec", "bucket_msm", "jac_ec",
@@ -67,17 +71,21 @@ SCALAR_SOURCES = ("mont_mul", "row_fft", "butterfly", "ff_ops", "plonk_num")
 
 
 class Variant(NamedTuple):
-    """One build of a source: GT_NW and GT_SOUND."""
+    """One build of a source: GT_NW, GT_SOUND and GT_NR_ABS (|u^2| of
+    the Fp2 the point kernels take; 1 for a scalar field's build)."""
     nw: int
     sound: bool
+    nr_abs: int
 
     @property
     def tag(self) -> str:
-        return f"w{self.nw}" + ("-sound" if self.sound else "")
+        return (f"w{self.nw}" + ("-sound" if self.sound else "")
+                + (f"-nr{self.nr_abs}" if self.nr_abs != 1 else ""))
 
     @property
     def flags(self) -> tuple:
-        return (f"-DGT_NW={self.nw}", f"-DGT_SOUND={int(self.sound)}")
+        return (f"-DGT_NW={self.nw}", f"-DGT_SOUND={int(self.sound)}",
+                f"-DGT_NR_ABS={self.nr_abs}")
 
 
 def kernel_field(name: str) -> KernelField:
@@ -90,12 +98,13 @@ def kernel_field(name: str) -> KernelField:
 
 def variant(field: str) -> Variant:
     kf = kernel_field(field)
-    return Variant(kf.nw, kf.sound)
+    return Variant(kf.nw, kf.sound, -kf.nr if kf.base else 1)
 
 
 def builds(fields=None) -> list:
     """(source, Variant) of every library the fields' kernels use, each
-    once (BN254's two fields share one build of each source)."""
+    once (BN254's two fields and BLS12-377's scalar field share one build
+    of each source)."""
     out = []
     for f in (KERNEL_FIELDS if fields is None else fields):
         srcs = BASE_SOURCES if kernel_field(f).base else SCALAR_SOURCES
@@ -182,7 +191,7 @@ def start_builds(pairs=None, nice: int = 0) -> dict:
     one). Returns the jobs for finish_builds."""
     return {"t0": time.time(),
             "jobs": {(n, v): _start(n, v, nice)
-                     for n, v in (pairs or builds())}}
+                     for n, v in (builds() if pairs is None else pairs)}}
 
 
 def finish_builds(started: dict) -> dict:

@@ -44,6 +44,9 @@ class FF:
         self.n0inv = params.n0inv
         self.one_np = np.array(params.to_limbs(params.R_mod), dtype=np.int64)
         self.R2_np = np.array(params.to_limbs(params.R2_mod), dtype=np.int64)
+        # -p^-1 mod R, the whole-width REDC constant (_mul_wide)
+        self.NP_np = np.array(params.to_limbs(
+            -pow(params.modulus, -1, params.R) % params.R), dtype=np.int64)
         e = params.modulus - 2
         self.pm2_bits = [(e >> i) & 1 for i in range(params.bits)]
         # 4p >= R (bls12_381_fr: 4r ~ 1.81 R): a product of two inputs
@@ -182,11 +185,13 @@ class FF:
         c_in, c = self._lookahead(lo, (d < 0).to(_I64), d == 0)
         return (lo - c_in) & LIMB_MASK, c
 
-    def _normalize(self, x):
+    def _normalize(self, x, rounds: int = 3):
         """Nonnegative limbs below 2^48 whose value fits the width ->
         normalized limbs: three carry-save rounds leave every limb at
-        most 2^16 + 1, then one lookahead resolves the 0/1 carries."""
-        for _ in range(3):
+        most 2^16 + 1, then one lookahead resolves the 0/1 carries (two
+        rounds do for limbs below 2^38). A value past the width comes
+        back mod 2^(16 width)."""
+        for _ in range(rounds):
             x = (x & LIMB_MASK) + torch.nn.functional.pad(
                 x[..., :-1] >> LIMB_BITS, (1, 0))
         return self._norm_add(x)[0]
@@ -237,23 +242,34 @@ class FF:
             D = self._dev[key] = D.to(device)
         return D
 
+    def _schoolbook(self, a, b, cols: int):
+        """The first cols limbs of the schoolbook product of normalized
+        limbs a and b, unnormalized: one matrix product (float64 is exact
+        here: each anti-diagonal sum is below n * 2^32)."""
+        n = self.n
+        batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+        af, bf = a.to(torch.float64), b.to(torch.float64)
+        return ((af[..., :, None] * bf[..., None, :]).reshape(batch + (n * n,))
+                @ self._diag(a.device)[:, :cols]).to(_I64)
+
     def mul(self, a, b):
         """Montgomery product a*b*R^-1 mod p. Inputs < 2p with
         normalized limbs; output canonical (with 4p >= R after two
         conditional subtracts, else one).
 
         Separated operand scanning: the schoolbook product T (2n limbs)
-        in one matrix product (float64 is exact here: each anti-diagonal
-        sum is below 16 * 2^32), then n reduction steps over the
+        in one matrix product, then n reduction steps over the
         limb-major (2n + 1, batch) layout, each adding m*p at limb i so
-        that limb i becomes 0 mod 2^16 and carrying it up."""
+        that limb i becomes 0 mod 2^16 and carrying it up. On the card,
+        where each of those steps' six launches costs more than its
+        work, _mul_wide: the same value in a fixed ~90 launches."""
         a, b = torch.broadcast_tensors(a, b)
+        if a.device.type == "cuda":
+            return self._mul_wide(a, b)
         n = self.n
         batch = a.shape[:-1]
         P = self._const("P_np", a.device)[:, None]
-        af, bf = a.to(torch.float64), b.to(torch.float64)
-        T = ((af[..., :, None] * bf[..., None, :]).reshape(batch + (n * n,))
-             @ self._diag(a.device)).to(_I64)
+        T = self._schoolbook(a, b, 2 * n)
         T = torch.nn.functional.pad(T.reshape(-1, 2 * n).T,
                                     (0, 0, 0, 1)).contiguous()
         for i in range(n):
@@ -262,6 +278,22 @@ class FF:
             T[i + 1] += T[i] >> LIMB_BITS
         R = T[n:].T.reshape(batch + (n + 1,))
         out = self._cond_sub(self._normalize(R))
+        return self._cond_sub(out) if self.sound else out
+
+    def _mul_wide(self, a, b):
+        """mul's value by whole-width REDC: m = (T mod R)(-p^-1) mod R
+        and (T + m p) / R, each product one schoolbook matrix product;
+        m is the one the limb steps build, so the result is the same."""
+        n = self.n
+        pad = torch.nn.functional.pad
+        T = self._schoolbook(a, b, 2 * n)                # limbs < n 2^32
+        m = self._normalize(self._schoolbook(
+            self._normalize(T[..., :n], 2), self._const("NP_np", a.device),
+            n), 2)
+        S = pad(T, (0, 1)) + pad(self._schoolbook(
+            m, self._const("P_np", a.device), 2 * n), (0, 1))
+        # S = 0 mod R and S < 2 R^2: its top n + 1 limbs are (T + m p) / R
+        out = self._cond_sub(self._normalize(S, 2)[..., n:])
         return self._cond_sub(out) if self.sound else out
 
     def square(self, a):

@@ -124,7 +124,8 @@ def _words_of_ref(ff, limbs):
 def test_kernel_fields_and_builds():
     """Each kernel field's words and class follow from its modulus; the
     builds are one library a source and variant (BN254's two fields
-    share theirs), each with its own name and hash."""
+    and BLS12-377's scalar field share theirs), each with its own name
+    and hash."""
     for name, kf in cuda.KERNEL_FIELDS.items():
         p, big = fields.FIELDS[name], 1 << (32 * kf.nw)
         assert p.R == big and 2 * p.modulus < big, name
@@ -134,7 +135,7 @@ def test_kernel_fields_and_builds():
     assert not any(cuda.KERNEL_FIELDS[f].sound
                    for f in ("bn254_fp", "bn254_fr", FP))
     pairs = cuda.builds()
-    assert len(pairs) == len(set(pairs)) == 21
+    assert len(pairs) == len(set(pairs)) == 27
     assert cuda.variant("bn254_fp") == cuda.variant("bn254_fr")
     assert {s for s, v in pairs if v == cuda.variant("bn254_fr")} == \
         set(cuda.SOURCES)
@@ -167,19 +168,20 @@ def test_field_consts_layout(name):
 
 
 def test_the_card_takes_bls12_381_only_beside_bn254():
-    """A card request over BLS12-377 or BW6-761 raises before any work;
-    the CPU takes every curve."""
+    """The card takes BLS12-381 beside BN254 (and BLS12-377): only a
+    card request over BW6-761 raises before any work; the CPU takes
+    every curve. BLS12-381's Fp2 kernels take u^2 = -1 only."""
     card, cpu = torch.device("cuda"), torch.device("cpu")
-    for name in ("bls12_377", "bw6_761"):
-        with pytest.raises(ValueError):
-            cuda.check_curve(curves.CURVES[name], card)
+    with pytest.raises(ValueError):
+        cuda.check_curve(curves.CURVES["bw6_761"], card)
+    for name in ("bn254", "bls12_381", "bls12_377", "bw6_761"):
         cuda.check_curve(curves.CURVES[name], cpu)
-    for name in ("bn254", "bls12_381"):
+    for name in ("bn254", "bls12_381", "bls12_377"):
         cuda.check_curve(curves.CURVES[name], card)
     with pytest.raises(ValueError):
-        cuda.field_consts("bls12_377_fr")
+        cuda.field_consts("bw6_761_fr")
     with pytest.raises(ValueError):
-        kernel_field(get_ff2("bls12_377_fp", -5))
+        kernel_field(get_ff2(FP, -5))
     assert kernel_field(get_ff2(FP, -1)).shape == (49,)
 
 
@@ -440,7 +442,8 @@ def test_srs_scalars_take_the_scalar_fields_words(monkeypatch):
 
 def test_bls12_377_g2_affine_on_the_cpu():
     """The plain jac_to_affine over BLS12-377's Fp2 (u^2 = -5) equals
-    the host's affine points; the card's path refuses that Fp2."""
+    the host's affine points; the card's path takes that Fp2 (its
+    12-word constants) and refuses one with u^2 = -1 over the same Fp."""
     c = curves.CURVES["bls12_377"]
     ff = get_ff2(c.fp.name, c.fp2_nr)
     hf = c.host_g2_field
@@ -466,8 +469,9 @@ def test_bls12_377_g2_affine_on_the_cpu():
     shape = (-1, 2, ff.nw)
     assert groth16._host_points(ff, x.reshape(shape), y.reshape(shape),
                                 inf) == pts
+    assert kernel_field(ff).shape == (49,)
     with pytest.raises(ValueError):
-        fixed_base._affine_card(ff, P)
+        fixed_base._affine_card(get_ff2(c.fp.name, -1), P)
 
 
 # ---------------------------------------------------------------------------

@@ -153,7 +153,18 @@ def test_bls12_381_points(dev, g2):
     """The 12-word builds: the ladder at 255 bits on 0, 1, r - 1, r and
     r + 2 against the host, the affine kernel against its plain version,
     and the bucket MSM (digit kernel, K4, K9) against the host."""
-    c = curves.CURVES["bls12_381"]
+    _curve_points(dev, "bls12_381", g2)
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_bls12_377_points(dev, g2):
+    """The 12-word builds with u^2 = -5 (nr5): as test_bls12_381_points,
+    the ladder at 253 bits."""
+    _curve_points(dev, "bls12_377", g2)
+
+
+def _curve_points(dev, cv, g2):
+    c = curves.CURVES[cv]
     ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
     hf = c.host_g2_field if g2 else c.host_fp
     gen = c.g2 if g2 else c.g1
@@ -179,6 +190,126 @@ def test_bls12_381_points(dev, g2):
     kind, R = msm_raw(ff, (x, y, inf), torch.as_tensor(
         fr.encode_words(ms, mont=False), device=dev), c.fr.bits)
     assert _to_affine_host(ff, hf, kind, R) == host.ec_msm(hf, pts, ms)
+
+
+def _group_of(cv, g2):
+    """(ff, host field, b3, generator) of curve cv's G1 or G2."""
+    c = curves.CURVES[cv]
+    if g2:
+        return (get_ff2(c.fp.name, c.fp2_nr), c.host_g2_field,
+                curve_b3_g2(c.fp.name), c.g2)
+    return get_ff(c.fp.name), c.host_fp, curve_b3(c.fp.name), c.g1
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_bls12_377_point_kernels(dev, g2):
+    """The nr5 builds' K3, K6, K7, K8 and jac_fold against their plain
+    versions, bit-exact, on curve points (infinity, P == Q, P == -Q, X in
+    [p, 2p)) and on random words; K4 at c = 8 and 13 and K9 on its sums
+    against their plain versions as group elements, and K9 against the
+    host's MSM."""
+    cv = "bls12_377"
+    c = curves.CURVES[cv]
+    ff, hf, b3, gen = _group_of(cv, g2)
+    rng = random.Random(21 + g2)
+    base = [gen]
+    for _ in range(15):
+        base.append(host.ec_add(hf, base[-1], gen))
+    n = 300
+    P = [base[rng.randrange(16)] for _ in range(n)]
+    Q = [base[rng.randrange(16)] for _ in range(n)]
+    Q[0], P[1], P[2], Q[2] = host.INF, host.INF, host.INF, host.INF
+    Q[3], Q[4] = P[3], host.ec_neg(hf, P[4])
+    Pw, Qw = _jac_words(ff, hf, P, rng, dev, 40), _jac_words(ff, hf, Q, rng,
+                                                             dev, 20)
+    got, want = jac_add(ff, Pw, Qw), jac_add_plain(ff, Pw, Qw)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    for i in range(8):
+        assert _to_affine_host(ff, hf, "jac", tuple(a[i:i + 1] for a in got)) \
+            == host.ec_add(hf, P[i], Q[i])
+    Qx, Qy = (torch.as_tensor(ff.encode_words(
+        [((1, 0) if g2 else 1) if q is host.INF else q[k] for q in Q]),
+        device=dev).reshape(n, -1) for k in (0, 1))
+    mask = torch.as_tensor([q is host.INF for q in Q], device=dev)
+    got = jac_add_mixed(ff, Pw, Qx, Qy, mask)
+    assert all(torch.equal(u, v) for u, v in
+               zip(got, jac_add_mixed_plain(ff, Pw, Qx, Qy, mask)))
+    for i in range(8):
+        assert _to_affine_host(ff, hf, "jac", tuple(a[i:i + 1] for a in got)) \
+            == host.ec_add(hf, P[i], Q[i])
+    got = jac_double(ff, Pw)
+    assert all(torch.equal(u, v) for u, v in zip(got, jac_double_plain(ff,
+                                                                       Pw)))
+    W, G, B = 2, 5, 30
+    assert all(torch.equal(u, v) for u, v in
+               zip(jac_fold(ff, Pw, G, B), jac_fold_plain(ff, Pw, G, B)))
+    m = 500
+    R6 = tuple(_words(ff.base if g2 else ff, 2 * m if g2 else m, s, dev)
+               .reshape(m, -1) for s in range(6))
+    for fn, pfn, args in ((jac_add, jac_add_plain, (R6[:3], R6[3:])),
+                          (proj_add, proj_add_plain, (R6[:3], R6[3:])),
+                          (proj_double, proj_double_plain, (R6[:3],))):
+        pre = (b3,) if fn in (proj_add, proj_double) else ()
+        assert all(torch.equal(u, v) for u, v in
+                   zip(fn(ff, *pre, *args), pfn(ff, *pre, *args)))
+    pts = [base[rng.randrange(16)] for _ in range(700)]
+    x, y = (torch.as_tensor(ff.encode_words([p[i] for p in pts]),
+                            device=dev).reshape(700, -1) for i in (0, 1))
+    inf = torch.zeros(700, dtype=torch.bool, device=dev)
+    inf[3:6] = True
+    ks = [rng.randrange(c.fr.modulus) for _ in range(700)]
+    ks[7:9] = [0, 0]
+    ks[20:60] = [2] * 40
+    sc = torch.as_tensor(get_ff(c.fr.name).encode_words(ks, mont=False),
+                         device=dev)
+    live = [(p, k) for i, (p, k) in enumerate(zip(pts, ks)) if not 3 <= i < 6]
+    want = host.ec_msm(hf, [p for p, _ in live], [k for _, k in live])
+    for cc in (8, 13):
+        digits = bucket_digits(sc, c.fr.bits, cc, c.fp.name)
+        assert torch.equal(digits, signed_digits(scalar_limbs(sc), c.fr.bits,
+                                                 cc))
+        got = bucket_msm(ff, b3, x, y, inf, digits, cc)
+        assert _proj_equal(ff, got, bucket_msm_plain(ff, b3, x, y, inf,
+                                                     digits, cc))
+        Wd = digits.shape[0]
+        Rr = bucket_reduce(ff, b3, got, Wd, cc)
+        assert _proj_equal(ff, Rr, bucket_reduce_plain(ff, b3, got, Wd, cc))
+        assert _to_affine_host(ff, hf, "proj", Rr) == want
+
+
+def test_bls12_377_proofs_card_equal_cpu(dev):
+    """The cubic over BLS12-377: the Groth16 setup and prove on the card
+    equal the CPU's under the same seeds (keys and proof), and the PLONK
+    proof on the card equals the CPU's on the same keys moved there; both
+    verify."""
+    import dataclasses
+
+    from gnark_tpu_torch import fields
+    from gnark_tpu_torch.backend import groth16, kzg, plonk
+    from gnark_tpu_torch.backend.groth16_check import Cubic
+    from gnark_tpu_torch.frontend import compile_circuit, witness
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+
+    cs = compile_circuit(Cubic(), fields.BLS12_377_FR)
+    pub, sec = witness(Cubic(x=3, y=35), cs)
+    proofs = {}
+    for d in (dev, "cpu"):
+        rng = random.Random(41)
+        pk, vk = groth16.setup(cs, "bls12_377", rng=rng, device=d)
+        proofs[d] = groth16.prove(cs, pk, pub, sec, rng=rng, device=d)
+        assert groth16.verify(proofs[d], vk, pub)
+    assert proofs[dev] == proofs["cpu"]
+
+    cs = compile_circuit(Cubic(), fields.BLS12_377_FR,
+                         builder_cls=SCSBuilder)
+    pub, sec = witness(Cubic(x=3, y=35), cs)
+    srs = kzg.setup_srs("bls12_377", 64, rng=random.Random(43), device=dev)
+    pk, vk = plonk.setup(cs, srs)
+    got = plonk.prove(cs, pk, pub, sec, rng=random.Random(44), device=dev)
+    want = plonk.prove(cs, pk.to("cpu"), pub, sec, rng=random.Random(44),
+                       device="cpu")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert plonk.verify(got, vk, pub)
 
 
 def _host_points_of(ff, hf, x, y, Z, shape):
@@ -731,10 +862,12 @@ def _jac_words(ff, hf, pts, rng, dev, lazy=0):
     out = [torch.as_tensor(ff.encode_words(c)).reshape(len(pts), -1)
            for c in cols]
     base = ff.base if g2 else ff
+    nw = base.nw
     for i in range(lazy):          # encode_words would reduce X + p
-        v = int(base.decode_words(out[0][i, :8], mont=False)) + q
-        out[0][i, :8] = torch.frombuffer(bytearray(v.to_bytes(32, "little")),
-                                         dtype=torch.int32)
+        v = int(base.decode_words(out[0][i, :nw], mont=False)) + q
+        out[0][i, :nw] = torch.frombuffer(bytearray(v.to_bytes(4 * nw,
+                                                               "little")),
+                                          dtype=torch.int32)
     return tuple(a.to(dev) for a in out)
 
 

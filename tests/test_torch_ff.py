@@ -107,7 +107,7 @@ def test_kernel_constants_use_32bit_redc():
         assert sum(int(c[i]) << (32 * i) for i in range(8)) == p
         assert sum(int(c[8 + i]) << (32 * i) for i in range(8)) == 2 * p
     with pytest.raises(ValueError):
-        cuda.field_consts("bls12_377_fp")
+        cuda.field_consts("bw6_761_fp")
 
 
 def test_kernel_constants_end_with_r_cubed():
@@ -127,3 +127,25 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError):
         cuda.resolve_device(None)
     assert cuda.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["bn254_fp", "bn254_fr", "bls12_381_fp",
+                                  "bls12_381_fr", "bls12_377_fp",
+                                  "bls12_377_fr"])
+def test_wide_redc_equals_limb_steps(name):
+    """FF._mul_wide (the product on CUDA tensors: whole-width REDC in
+    three matrix products) gives mul's words bit for bit (its limb-step
+    REDC, the CPU path), on operands up to 2p - 1 (p, 0, 1 among them),
+    broadcast and batched, in the lazy and the sound class."""
+    f = get_ff(name)
+    q = f.p.modulus
+    rng = random.Random(31)
+    vals = [0, 1, q - 1, q, 2 * q - 1] + [rng.randrange(2 * q)
+                                          for _ in range(195)]
+    a = torch.as_tensor([[(v >> (16 * i)) & 0xFFFF for i in range(f.n)]
+                         for v in vals], dtype=torch.int64)
+    b = a.flip(0)
+    for x, y in ((a, b), (a, a), (a, b[:1]), (a.reshape(8, 25, f.n),
+                                              b.reshape(8, 25, f.n))):
+        assert torch.equal(f._mul_wide(*torch.broadcast_tensors(x, y)),
+                           f.mul(x, y))
