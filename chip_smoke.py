@@ -8,13 +8,19 @@ Phases (any failure exits non-zero):
      ten sources for BN254 (8 words, the lazy class), for BLS12-381
      the point sources at 12 words and the scalar-field sources in the
      sound class, for BLS12-377 the point sources at 12 words with u^2 =
-     -5 (its scalar field runs BN254's builds; cuda.builds(): 27
-     libraries), the other curves' niced and each waited for before its
-     phases (BLS12-377's right after BN254's, for its checks process;
-     BLS12-381's right after BN254's phase 3, for its own),
-     with each library's seconds and its ptxas register / spill lines;
-     and the native witness solver;
-  3. every kernel against its plain PyTorch version on the card:
+     -5 (its scalar field runs BN254's builds), for BW6-761 the point
+     sources at 24 words with no Fp2 and 12-word scalars and its scalar
+     field's Groth16 sources at 12 words (cuda.builds(): 35 libraries),
+     the other curves' niced (BW6-761's started first), each library
+     put in place as its nvcc ends (the other curves' by a thread
+     each) for the checks processes, which start with the builds and
+     wait for their libraries, with each library's seconds and its
+     ptxas register / spill lines; and the native witness solver;
+  3. every kernel against its plain PyTorch version on the card, in a
+     checks process of its own for each curve (curve_checks), BN254's
+     too, beside BN254's phases 4 and 5 (their host-bound solves and
+     circuits), each waited for before its curve's phase 5 (BN254's
+     before its phase 6):
      K1 mont_mul, mont_mul_sub_mul ((a*b - c)*d, broadcast d) and
      affine_words (Jacobian -> affine in G1 and G2: infinity, Z = 1, Z in
      [p, 2p)), K2 row_fft (rows of 2^9 to 2^13: the last past a block's
@@ -45,9 +51,10 @@ Phases (any failure exits non-zero):
      + 3 in both forms (one Z_H, a period-4 table), against its plain
      version and against the K1 / K10 / K11 sequence it replaced; and the
      CUDA kernels one call of each starts (the profiler's device trace,
-     in a fresh process, after a first session thrown away; a call whose
-     trace is empty though its wrapper counted a launch is traced again,
-     at most three times: K11 3, K12 1, K13 1, K14 1); then all of this
+     in a fresh process, after sessions thrown away until one sees its
+     call's kernels; a call whose trace is empty though its wrapper
+     counted a launch is traced again, up to TRACE_TRIES times: K11 3, K12 1,
+     K13 1, K14 1); then all of this
      phase again for each curve of CURVES2, before its phase 5: on the
      BLS12-381 builds, 12-word G1 and G2 for K1's affine kernel, K3, K4
      and its digit kernel (255-bit scalars), K6-K9, jac_fold and the
@@ -56,10 +63,14 @@ Phases (any failure exits non-zero):
      rows in [p, 2p) and a row with both operands at 2p - 1; on
      BLS12-377's, the same point kernels at 12 words with u^2 = -5
      (253-bit scalars), and its scalar field on BN254's builds at n <=
-     2^16 + 3 (SHARED_FR; no kernels-a-call trace: BN254's binaries),
-     in a process of its own beside BN254's phase 3 (curve_checks);
-     BLS12-381's phase 3 and cubic cell in a process of its own beside
-     BN254's phases 4 and 5 (their host-bound solves and circuits);
+     2^16 + 3 (SHARED_FR; no kernels-a-call trace: BN254's binaries);
+     on BW6-761's, its 24-word point kernels (G2 over Fp
+     through the G1 kernels with G2's b3 = 12) with 377-bit scalars, the
+     ladder on 64 scalars, the affine kernel on 256 points, its 12-word
+     scalar field's K1, K2 (rows of 2^13: a global pass, then 2^11
+     segments, 2^12 not fitting a block) and K5, no K10-K14 (GROTH16_ONLY:
+     K11's inverse takes 8 words), and a PLONK request on the card
+     refused before any launch (plonk_refused);
   4. the prove path: BN254 Groth16 prove of a 2^20-constraint squaring
      chain (bench.py's g16_20 circuit) on a known-log proving key, three
      times; each MSM runs the digit kernel, K4 and K9 once and K3 not
@@ -97,19 +108,21 @@ Phases (any failure exits non-zero):
      stage timed by the host
      clock and CUDA events, verify, a tampered claimed value and a
      tampered commitment refused; then for BLS12-381 and BLS12-377:
-     g16_381_18 / g16_377_20 (the g16_20 circuit over the curve's scalar
+     g16_381_18 / g16_377_18 (the g16_20 circuit over the curve's scalar
      field: setup, sampled key points against host scalar
      multiplications, three proves with each MSM's digit kernel, K4 and
      K9 once, 14 K2 and 4 K1 launches, no K3; the five MSMs against
      their values from the setup's scalars, H by Schwartz-Zippel,
-     verify, a tampered proof refused), plonk_381_18 / plonk_377_20
-     (plonk_20's circuit and checks) and cubic_381_plonk /
+     verify, a tampered proof refused), plonk_381_18 / plonk_377_18
+     (plonk_20's circuit and checks), g16_761_18 (the g16 cell over
+     BW6-761's scalar field, last of all; no PLONK cell) and
+     cubic_381_plonk /
      cubic_377_plonk (examples/cubic.py's circuit: the card's proof
      equals the CPU's byte for byte, verify, a wrong public value
      refused; cubic_381_plonk and cubic_377_plonk in their curve's
-     checks process); BLS12-381's
-     two cells at 2^18 (CELL_LOG: g16_381_18, plonk_381_18, every check
-     kept; the time limit's cuts);
+     checks process); BLS12-381's and BLS12-377's
+     cells at 2^18 (CELL_LOG: g16_381_18, plonk_381_18, g16_377_18,
+     plonk_377_18, every check kept; the time limit's cuts);
   6. every kernel again at the shapes its path gives it, held against
      its plain version on the same inputs (K4 and K9 on the g16_20 setup
      key's columns, 2^20 distinct points, with K4's grouping and passes
@@ -133,12 +146,17 @@ Phases (any failure exits non-zero):
      g16_381_18's key columns and setup (the plain K4 on the first 2^16
      points), its K10-K14 at 2^20 in the sound class, each a row of its
      own ("name@bls12_381") in the JSON line; for BLS12-377 the kernels
-     of its own point builds, K4 and K9 in G1 and G2 on g16_377_20's key
+     of its own point builds, K4 and K9 in G1 and G2 on g16_377_18's key
      columns, the ladder against the per-bit K7 + K6 and the affine
      kernel on its setup's scalars, and on its scalar field (BN254's
      binaries) a 2^20 K2 transform and K14 (rows "name@bls12_377" for
      the kernels it timed; --quick times its K1, K5, mont_mul_sub_mul
-     and K10-K13 too); then the card's name and power limit, and the device
+     and K10-K13 too); for BW6-761 (rows "name@bw6_761") K4 and K9 on
+     g16_761_18's key columns (the plain K4 on 2^12 points), the ladder
+     (16 rows against the host, no per-bit K7 + K6) and the affine kernel
+     (the plain chain on 256 points, the K1 chain on all) on its setup,
+     and a 2^20 K2 transform, K1 and mont_mul_sub_mul at 12 words; then
+     the card's name and power limit, and the device
      as the last line. Each phase's wall time is logged ("[time]").
 
 Option: --quick stops after phase 3, with phase 6's four-step
@@ -199,24 +217,43 @@ def mul_ops(nw=8):
 
 MUL_OPS = mul_ops(8)
 # the curves beyond BN254 on the card (phases 3, 5, 6), in this order
-CURVES2 = ("bls12_381", "bls12_377")
+CURVES2 = ("bls12_381", "bls12_377", "bw6_761")
+# curves whose scalar field builds Groth16's kernels alone (12 words:
+# K11's inverse takes 8, cuda.sources): no K10-K14, no PLONK cell; a
+# card PLONK request is checked to raise before any work
+GROTH16_ONLY = ("bw6_761",)
+# the time limit's cut 3: these curves' plain twins at small sizes, each
+# still past its kernel's block or tile (the plain ladder on 64 scalars,
+# the plain affine chain on 256 rows, the plain K4 on 2^12 points in
+# phase 6), and no per-bit K7 + K6 beside their setup ladders (16 rows
+# against host multiplications instead)
+SMALL_PLAIN = ("bw6_761",)
 # curves whose scalar field runs BN254's 8-word lazy builds
 # (cuda.variant): phase 3 holds those kernels at n <= 2^16 + 3 on the
 # curve's constants, phase 6 times a 2^20 K2 transform and K14 of them
 SHARED_FR = ("bls12_377",)
-# each curve's phase 3 and cubic cell run in a process of their own
-# (curve_checks): a SHARED_FR curve's beside BN254's phase 3, which
-# measures nothing the run reports but its plain ladder's time, waited
-# for before phase 4; the others' beside BN254's phases 4 and 5 (host-
-# bound: circuits, solves), each waited for before its phase 5
+# each curve's phase 3 (and cubic cell) runs in a process of its own
+# (curve_checks), BN254's too: all started with the builds, each waiting
+# for its libraries, then beside BN254's phases 4 and 5 (host-bound:
+# circuits, solves); phase 3 measures nothing the run reports but its
+# plain ladder's time; each is waited for before its curve's phase 5
+# (BN254's before its phase 6)
 CHECKS_SEED = 2025
 CHECKS_WAIT_S = 900
 # the time limit's cuts (the run was over 1,100 s without them): 1. no
 # kernels-a-call trace of a SHARED_FR curve's scalar-field kernels
 # (BN254's binaries, traced in BN254's phase 3); 2. and 3. plonk and g16
 # over BLS12-381 at 2^18 (phase 6's BLS12-381 kernels then on the 2^18
-# key's columns and setup), every check kept
-CELL_LOG = {("plonk", "bls12_381"): 18, ("g16", "bls12_381"): 18}
+# key's columns and setup), every check kept; with BW6-761's phases, 4.
+# BLS12-377's cells at 2^18 too and, as the run with cuts 1-4 took
+# 1319 s (one H100, PERF.md §5), 5. BW6-761's g16 cell at 2^18 (its
+# phase 6 then on the 2^18 key's columns and setup); with BN254's
+# phase 3 in a checks process too, 822 s: cuts 4 and 5 stay, since
+# hosts differ by up to 1.35x and 2^20 cells would take a slow one
+# past the 1200 s limit
+CELL_LOG = {("plonk", "bls12_381"): 18, ("g16", "bls12_381"): 18,
+            ("plonk", "bls12_377"): 18, ("g16", "bls12_377"): 18,
+            ("g16", "bw6_761"): 18}
 HBM_BYTES_PER_S = 3.35e12
 DEV = "cuda"          # the card; a rehearsal may set "cpu"
 N_CHAINS, CHAIN_LEN = 2048, 512      # 2^20 constraints
@@ -238,7 +275,7 @@ def cell_log(kind, cv):
 
 
 def cell_name(kind, cv):
-    """g16_20 and plonk_20 on BN254; g16_381_18, plonk_377_20,
+    """g16_20 and plonk_20 on BN254; g16_381_18, plonk_377_18,
     cubic_381_plonk, ... on the curves beyond."""
     if kind == "cubic":
         return f"cubic_{cv[-3:]}_plonk"
@@ -342,6 +379,19 @@ def proj_err(ff, A, B):
                max_abs(ff.mul(Y1, Z2), ff.mul(Y2, Z1)))
 
 
+def group_ff(c, g2):
+    """The field of curve c's G1 (Fp) or G2 coordinates: Fp2, or Fp
+    itself on BW6-761, whose G2 runs the G1 kernels with its own b3."""
+    from gnark_tpu_torch.backend.groth16 import _g2_field
+    from gnark_tpu_torch.ff import get_ff
+    return _g2_field(c) if g2 else get_ff(c.fp.name)
+
+
+def is_fp2(ff):
+    from gnark_tpu_torch.ec.proj_ec import is_fp2 as fp2
+    return fp2(ff)
+
+
 def max_abs(a, b):
     import torch
     if a.shape != b.shape:
@@ -355,7 +405,6 @@ def phase_kernels(rng, res, cv="bn254"):
     from gnark_tpu_torch import cuda
     from gnark_tpu_torch.backend.groth16 import _to_affine_host
     from gnark_tpu_torch.ec import curves, host
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
                                             proj_double, proj_double_plain)
     from gnark_tpu_torch.ff import get_ff
@@ -365,8 +414,8 @@ def phase_kernels(rng, res, cv="bn254"):
     from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                             bucket_msm_plain,
                                             bucket_reduce,
-                                            bucket_reduce_plain, curve_b3,
-                                            curve_b3_g2, signed_digits)
+                                            bucket_reduce_plain, group_b3,
+                                            signed_digits)
     from gnark_tpu_torch.msm.pippenger import scalar_limbs
     from gnark_tpu_torch.ntt import Domain, fourstep
     from gnark_tpu_torch.ntt.fourstep import (fourstep_ntt, root_powers,
@@ -424,8 +473,9 @@ def phase_kernels(rng, res, cv="bn254"):
     smem = cuda.lib("row_fft", fr.p.name).gt_fs_smem
     smem.restype = ctypes.c_longlong
     for G in range(1, fourstep.SMEM_LOG + 1):
-        check(smem(G) == fourstep.seg_smem_bytes(G), f"K2 shared memory "
-              f"at 2^{G}: kernel {smem(G)}, host {fourstep.seg_smem_bytes(G)}")
+        host_b = fourstep.seg_smem_bytes(G, fr.nw)
+        check(smem(G) == host_b, f"K2 shared memory at 2^{G}, {fr.nw} "
+              f"words: kernel {smem(G)}, host {host_b}")
     # whole four-step transforms (two launches each, the scalings inside)
     # against the plain four-step sequence, at 2^12 and 2^13 (the
     # threshold forced down: they take the radix-2 plan by default), and
@@ -455,9 +505,9 @@ def phase_kernels(rng, res, cv="bn254"):
     # K3 and K4 in G1 and G2
     err3 = {"proj_add": 0, "proj_double": 0}
     for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else fp
+        ff = group_ff(c, g2)
         hf = c.host_g2_field if g2 else c.host_fp
-        b3 = curve_b3_g2(c.fp.name) if g2 else curve_b3(c.fp.name)
+        b3 = group_b3(c, g2)
         gen = c.g2 if g2 else c.g1
         tag = "G2" if g2 else "G1"
         # 64 distinct points, tiled to 2^12 pairs with random Z
@@ -696,7 +746,6 @@ def phase_kernels_jac_ntt(rng, res, cv="bn254"):
     import numpy as np
     import torch
     from gnark_tpu_torch.ec import curves, host
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ec.jac_ec import (jac_add, jac_add_mixed,
                                            jac_add_mixed_plain, jac_add_plain,
                                            jac_double, jac_double_plain)
@@ -749,7 +798,7 @@ def phase_kernels_jac_ntt(rng, res, cv="bn254"):
     errs = {"jac_add_mixed": 0, "jac_double": 0, "jac_add": 0,
             "jac_fold": 0}
     for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        ff = group_ff(c, g2)
         hf = c.host_g2_field if g2 else c.host_fp
         gen = c.g2 if g2 else c.g1
         tag = "G2" if g2 else "G1"
@@ -871,25 +920,25 @@ LADDER_ROWS = 1024
 def phase_kernels_ladder(rng, res, cv="bn254"):
     """The fused ladder against its plain version (the per-bit plain K7
     + K6) at the scalar field's bits (254 on BN254, 255 on BLS12-381) on
-    1,029 scalars in G1 and G2, bit-exact: 0, 1,
+    1,029 scalars (64 on a SMALL_PLAIN curve) in G1 and G2, bit-exact:
+    0, 1,
     r - 1, r (the last add is P + (-P)) and r + 2 (P + P, the doubling
     branch), written as they are, then random ones; the edge rows
     against the host."""
     import torch
     from gnark_tpu_torch.ec import curves, host
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.ec.proj_ec import _lw
     from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
                                                 batch_scalar_mul_plain)
     c = curves.CURVES[cv]
     r, nbits = c.fr.modulus, c.fr.bits
-    ks = [0, 1, r - 1, r, r + 2] + [rng.randrange(r)
-                                    for _ in range(LADDER_ROWS)]
+    rows = 59 if cv in SMALL_PLAIN else LADDER_ROWS
+    ks = [0, 1, r - 1, r, r + 2] + [rng.randrange(r) for _ in range(rows)]
     sc = raw_words(ks, get_ff(c.fr.name).nw)
     err = 0
     for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        ff = group_ff(c, g2)
         hf = c.host_g2_field if g2 else c.host_fp
         gen = c.g2 if g2 else c.g1
         base = affine_words(ff, [gen])
@@ -926,13 +975,12 @@ AFFINE_TILE = 1024
 def phase_kernels_affine(rng, res, cv="bn254"):
     """K1's affine kernel (affine_words) against its plain version, the
     Fermat chain of plain products, on 1,024 G1 and G2 Jacobian points
-    from the host: infinity (Z = 0), Z = 1, Z in [p, 2p) (and X in [p,
-    2p)), random Z; bit-exact, and the edge rows equal the host's affine
-    points."""
+    (256 on a SMALL_PLAIN curve) from the host: infinity (Z = 0), Z = 1,
+    Z in [p, 2p) (and X in [p, 2p)), random Z; bit-exact, and the edge
+    rows equal the host's affine points."""
     import torch
     from gnark_tpu_torch.backend.groth16 import _host_points
     from gnark_tpu_torch.ec import curves, host
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm import fixed_base
     c = curves.CURVES[cv]
@@ -940,20 +988,21 @@ def phase_kernels_affine(rng, res, cv="bn254"):
     nw = get_ff(c.fp.name).nw
     err = 0
     for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        ff = group_ff(c, g2)
         hf = c.host_g2_field if g2 else c.host_fp
         gen = c.g2 if g2 else c.g1
         tag = "G2" if g2 else "G1"
         base = [gen]
         for _ in range(63):
             base.append(host.ec_add(hf, base[-1], gen))
-        m = 1024
+        m = 256 if cv in SMALL_PLAIN else 1024
         pts = [base[rng.randrange(64)] for _ in range(m)]
         pts[0] = pts[7] = host.INF
         X, Y, Z = point_words(ff, hf, pts, rng, g2, 100, jacobian=True)
         x1, y1 = affine_words(ff, pts[1:2])                 # Z = 1
         X[1], Y[1] = x1[0], y1[0]
-        Z[1] = torch.as_tensor(ff.encode_words([(1, 0) if g2 else 1]),
+        Z[1] = torch.as_tensor(ff.encode_words([(1, 0) if is_fp2(ff)
+                                                else 1]),
                                device=DEV).reshape(-1)
         Z[2:200] = lazy_rows(Z[2:200], q, nw)               # Z in [p, 2p)
         P = (X, Y, Z)
@@ -963,7 +1012,7 @@ def phase_kernels_affine(rng, res, cv="bn254"):
               f"K1 affine_words {tag}")
         err = max([err] + [max_abs(u, v) for u, v in zip(got, want)])
         idx = [0, 1, 2, 3, 7, 200, 201]
-        shp = (-1, 2, nw) if g2 else (-1, nw)
+        shp = (-1, 2, nw) if is_fp2(ff) else (-1, nw)
         inf = torch.tensor([pts[i] is host.INF for i in idx])
         check(_host_points(ff, *(a[idx].reshape(shp) for a in got), inf) ==
               [pts[i] for i in idx], f"K1 affine_words {tag} vs host")
@@ -997,6 +1046,7 @@ def point_words(ff, hf, pts, rng, g2, lazy, jacobian=False):
     pushed into [p, 2p)."""
     import torch
     from gnark_tpu_torch.ec import host
+    g2 = is_fp2(ff)            # the coordinates' layout (G2 over Fp: one)
     q = ff.p.modulus
     one, zero = ((1, 0), (0, 0)) if g2 else (1, 0)
     X, Y, Z = [], [], []
@@ -1247,7 +1297,7 @@ def phase_setup(res, cs, rng):
 
 
 def phase_g16_2(res, rng, cv):
-    """g16_381_18 / g16_377_20: bench.py's g16_20 squaring chain (2^20
+    """g16_381_18 / g16_377_18: bench.py's g16_20 squaring chain (2^20
     constraints; 2^cell_log) over curve cv's scalar field: setup on the
     card (one ladder
     and one affine_words launch a group), 64 sampled points of each key
@@ -1480,10 +1530,23 @@ def phase_times(res, rng, n_pts, ladder_sc, key_cols, cv="bn254",
     its own point builds, K4 and K9 (no width sweep), the ladder and the
     affine kernel, and on its constants a 2^20 K2 transform and K14
     (times_shared_fr, in --quick, the other scalar-field kernels of its
-    paths)."""
+    paths). A GROTH16_ONLY curve (BW6-761) times what its Groth16 path
+    runs: K4 and K9 (the plain K4 on 2^12 points), the ladder (its plain
+    time from phase 3, 16 rows against the host) and the affine kernel
+    (the plain chain on 256 rows), and on its 12-word scalar field a 2^20
+    K2 transform, K1 and mont_mul_sub_mul at 2^20."""
     import torch
     rate = int_mul_rate()
     put = make_put(res, rate)
+    if cv in GROTH16_ONLY:
+        times_k4_k9(res, rate, put, key_cols, cv, plain_pts=1 << 12)
+        times_ladder(res, rate, put, ladder_sc, plain_rows=0, cv=cv,
+                     per_bit=False, affine_rows=256)
+        torch.cuda.empty_cache()
+        times_fourstep(res, put, rng, n, cv)
+        times_mont_mul(put, rng, n, cv)
+        times_computeh(res, put, rng, n, cv)
+        return
     if cv in SHARED_FR:
         times_k4_k9(res, rate, put, key_cols, cv)
         times_ladder(res, rate, put, ladder_sc, plain_rows=0, cv=cv)
@@ -1517,7 +1580,7 @@ def times_k1_k3(put, rng, n, cv="bn254"):
     from gnark_tpu_torch.ec.proj_ec import (proj_add, proj_add_plain,
                                             proj_double, proj_double_plain)
     from gnark_tpu_torch.ff import get_ff
-    from gnark_tpu_torch.msm.bucket import curve_b3
+    from gnark_tpu_torch.msm.bucket import group_b3
     from gnark_tpu_torch.ntt.fourstep import (root_powers, row_fft,
                                               row_fft_plain, row_plan,
                                               seg_table)
@@ -1542,7 +1605,7 @@ def times_k1_k3(put, rng, n, cv="bn254"):
     # one-point Horner adds and doubles)
     fp = get_ff(c.fp.name)
     ops = mul_ops(fp.nw)
-    b3 = curve_b3(c.fp.name)
+    b3 = group_b3(c)
     wide = 32 * 128 // 2
     for name, sfx, w, fn, pfn, k, nin in (
             ("proj_add", "", wide, proj_add, proj_add_plain, "proj_add", 6),
@@ -1577,8 +1640,8 @@ def times_mont_mul(put, rng, n, cv="bn254"):
     a, b = rand_words(fr, n, rng), rand_words(fr, n, rng)
     ms, got = timed(lambda: mont_mul(fr, a, b))
     pms, want = timed(lambda: mont_mul_plain(fr, a, b), 3)
-    put("mont_mul", "", [n, 8], ms, pms, 3 * n * 32, n * MUL_OPS["mul"],
-        max_abs(got, want))
+    put("mont_mul", "", [n, fr.nw], ms, pms, 3 * n * 4 * fr.nw,
+        n * mul_ops(fr.nw)["mul"], max_abs(got, want))
 
 
 def times_k8(put, n_pts, cv="bn254"):
@@ -1589,7 +1652,6 @@ def times_k8(put, n_pts, cv="bn254"):
     on the same slice; then the fold itself at that MSM's shape."""
     import torch
     from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ec.jac_ec import jac_add, jac_add_plain
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm.pippenger import _pick_params
@@ -1603,13 +1665,13 @@ def times_k8(put, n_pts, cv="bn254"):
     W = -(-c.fr.bits // cc)
     wide = W * (G // 2) << cc
     for g2 in (False, True):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        ff = group_ff(c, g2)
         Lw = _lw(ff)
         P = tuple(rand_dev_words(wide, Lw, gen_t, nw, c.fp.modulus)
                   for _ in range(6))
         pn = 1 << 16
         sl_ = tuple(a[:pn] for a in P)
-        op, sfx = ("2", "_g2") if g2 else ("", "")
+        op, sfx = ("2" if is_fp2(ff) else "", "_g2" if g2 else "")
         ms, _ = timed(lambda: jac_add(ff, P[:3], P[3:]))
         pms, want = timed(lambda: jac_add_plain(ff, sl_[:3], sl_[3:]), 1,
                           warm=False)
@@ -1689,6 +1751,7 @@ def times_fourstep(res, put, rng, n, cv="bn254"):
     from gnark_tpu_torch.ntt.fourstep import (bitrev, fourstep_ntt,
                                               fourstep_ntt_plain, row_fft)
     fr = get_ff(f"{cv}_fr")
+    nw, M = fr.nw, mul_ops(fr.nw)["mul"]
     dom = get_domain(fr, n, DEV)
     x = rand_words(fr, n, rng)
     for inv, sfx in ((False, ""), (True, "_ifft")):
@@ -1696,18 +1759,18 @@ def times_fourstep(res, put, rng, n, cv="bn254"):
         S, n1 = plan.S, plan.n1
         pre = None if inv else dom._coset
         post = dom._ninv if inv else None
-        mid = plan.mid_t.reshape(S, n1, 8).permute(1, 0, 2).contiguous()
+        mid = plan.mid_t.reshape(S, n1, nw).permute(1, 0, 2).contiguous()
         rS = torch.as_tensor(bitrev(S), device=DEV)
         rn = torch.as_tensor(bitrev(n1), device=DEV)
 
         def sequence():
             y = mont_mul(fr, x, pre) if pre is not None else x
-            A = y.reshape(S, n1, 8).permute(1, 0, 2).contiguous()
+            A = y.reshape(S, n1, nw).permute(1, 0, 2).contiguous()
             Z = mont_mul(fr, row_fft(fr, A, plan.pw[0], plan.tw[0]), mid)
             W = row_fft(fr, Z.permute(1, 0, 2).contiguous(), plan.pw[1],
                         plan.tw[1])
             D = W.index_select(0, rS).permute(1, 0, 2).index_select(0, rn)
-            D = D.reshape(n, 8)
+            D = D.reshape(n, nw)
             return mont_mul(fr, D, post) if post is not None else D
         before = fourstep_ntt.launches
         ms, got = timed(lambda: fourstep_ntt(plan, x, pre, post))
@@ -1720,11 +1783,11 @@ def times_fourstep(res, put, rng, n, cv="bn254"):
         pms, want = timed(lambda: fourstep_ntt_plain(plan, x, pre, post), 1,
                           warm=False)
         prods = n // 2 * (n.bit_length() - 1) + n
-        nbytes = 2 * n * 32 + (n * 32 if pre is not None else 32)
-        put("fourstep_ntt", sfx, [n, 8], ms, pms, nbytes,
-            prods * MUL_OPS["mul"], max_abs(got, want))
-        b, by = bound_ms(nbytes + n * 32, (prods + n) * MUL_OPS["mul"],
-                         put.rate)
+        eb = 4 * nw                                 # bytes an element
+        nbytes = 2 * n * eb + (n * eb if pre is not None else eb)
+        put("fourstep_ntt", sfx, [n, nw], ms, pms, nbytes, prods * M,
+            max_abs(got, want))
+        b, by = bound_ms(nbytes + n * eb, (prods + n) * M, put.rate)
         res["fourstep_ntt"].update({"sequence_ms" + sfx: seq_ms,
                                     "bound_ms_fourstep" + sfx: b,
                                     "bound_by_fourstep" + sfx: by})
@@ -1822,11 +1885,11 @@ def times_computeh(res, put, rng, n, cv="bn254"):
     dom = get_domain(fr, n, DEV)
     a, b, c = (rand_words(fr, n, rng) for _ in range(3))
     d = rand_words(fr, 1, rng)
-    one = raw_words([1])
+    one = raw_words([1], fr.nw)
     ms, got = timed(lambda: mont_mul_sub_mul(fr, a, b, c, d))
     pms, want = timed(lambda: mont_mul_sub_mul_plain(fr, a, b, c, d), 3)
-    put("mont_mul_sub_mul", "", [n, 8], ms, pms, 4 * n * 32 + 32,
-        n * 2 * MUL_OPS["mul"], max_abs(got, want))
+    put("mont_mul_sub_mul", "", [n, fr.nw], ms, pms, (4 * n + 1) * 4 * fr.nw,
+        n * 2 * mul_ops(fr.nw)["mul"], max_abs(got, want))
     parts = {
         "ifft": cuda_ms(lambda: dom.ifft(a)),
         "coset_fft": cuda_ms(lambda: dom.fft(a, coset=True)),
@@ -1850,7 +1913,6 @@ def times_k6_k7(put, ladder_sc, cv="bn254"):
     the same slice."""
     import torch
     from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ec.jac_ec import (jac_add_mixed,
                                            jac_add_mixed_plain, jac_double,
                                            jac_double_plain)
@@ -1862,7 +1924,7 @@ def times_k6_k7(put, ladder_sc, cv="bn254"):
     gen_t = torch.Generator(device=DEV).manual_seed(5)
     for g2, sc in ((False, ladder_sc[0]), (True, ladder_sc[1])):
         npts = sc.shape[0]
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        ff = group_ff(c, g2)
         Lw = _lw(ff)
         P = tuple(rand_dev_words(npts, Lw, gen_t, nw, c.fp.modulus)
                   for _ in range(3))
@@ -1870,7 +1932,7 @@ def times_k6_k7(put, ladder_sc, cv="bn254"):
         mask = torch.rand(npts, device=DEV, generator=gen_t) < 0.5
         pn = 1 << 16
         sl_ = tuple(a[:pn] for a in P)
-        op, sfx = ("2", "_g2") if g2 else ("", "")
+        op, sfx = ("2" if is_fp2(ff) else "", "_g2" if g2 else "")
         for name, fn, pfn, args, k, nbytes in (
                 ("jac_add_mixed", jac_add_mixed, jac_add_mixed_plain,
                  (bx, by, mask), "jac_madd",
@@ -1921,13 +1983,17 @@ def ladder_work(sc, nbits, w):
             int((digits.sum(1) - 1).clamp(min=0).sum()))
 
 
-def times_ladder(res, rate, put, ladder_sc, plain_rows=1024, cv="bn254"):
+def times_ladder(res, rate, put, ladder_sc, plain_rows=1024, cv="bn254",
+                 per_bit=True, affine_rows=1024):
     """The ladder on the g16_20 setup's G1 and G2 scalars, held bit-exact
     against its plain version on the first plain_rows of them (whose
     time is the plain time; plain_rows 0: the plain version's time on
     phase 3's scalars, already held bit-exact there, whose plain ladder
     is dispatch-bound and takes as long at any width) and against the
-    per-bit K7 + K6 sequence it fuses on all of them (timed beside it).
+    per-bit K7 + K6 sequence it fuses on all of them (timed beside it;
+    without per_bit, the first 16 rows against host multiplications
+    instead); then the affine kernel on its output (times_affine, the
+    plain chain on affine_rows).
     Bound: the least work of the function, a fixed-base [s] B of which
     Setup keeps the affine point: a
     table at the best window (table_window), its mixed adds for these
@@ -1935,8 +2001,7 @@ def times_ladder(res, rate, put, ladder_sc, plain_rows=1024, cv="bn254"):
     and read once. bound_ms_dbl_add: the doublings and adds that
     double-and-add needs for these scalars, as the kernel runs it."""
     import torch
-    from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.fp2 import get_ff2
+    from gnark_tpu_torch.ec import curves, host
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm.fixed_base import (batch_scalar_mul,
                                                 batch_scalar_mul_plain,
@@ -1947,11 +2012,14 @@ def times_ladder(res, rate, put, ladder_sc, plain_rows=1024, cv="bn254"):
     ops = mul_ops(get_ff(c.fp.name).nw)
     r = res["batch_scalar_mul"]
     for g2, sc in ((False, ladder_sc[0]), (True, ladder_sc[1])):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        ff = group_ff(c, g2)
         base = affine_words(ff, [c.g2 if g2 else c.g1])
         n, Lw = sc.shape[0], _lw(ff)
-        op, sfx = ("2", "_g2") if g2 else ("", "")
-        ms, got = timed(lambda: batch_scalar_mul(ff, base, nbits, sc), 3)
+        op, sfx = ("2" if is_fp2(ff) else "", "_g2" if g2 else "")
+        # BW6-761's ladder runs for seconds: one timed run, not a warm one
+        # and three (~35 s of the time limit)
+        ms, got = timed(lambda: batch_scalar_mul(ff, base, nbits, sc),
+                        *((3,) if per_bit else (1, False)))
         if plain_rows:
             pms, want = timed(lambda: batch_scalar_mul_plain(
                 ff, base, nbits, sc[:plain_rows]), 1, warm=False)
@@ -1959,19 +2027,31 @@ def times_ladder(res, rate, put, ladder_sc, plain_rows=1024, cv="bn254"):
             pshape = [min(plain_rows, n), Lw, nbits]
         else:
             (pms, pshape), err = r["phase3_plain" + sfx], 0
-        seq_ms, want = timed(lambda: per_bit_ladder(ff, base, nbits, sc), 1)
-        check(all(torch.equal(u, v) for u, v in zip(got, want)),
-              f"ladder {'G2' if g2 else 'G1'} differs from the per-bit "
-              f"K7 + K6 on the setup's scalars")
-        del want
-        times_affine(res, rate, put, ff, got, g2, ops=ops)
+        if per_bit:
+            seq_ms, want = timed(lambda: per_bit_ladder(ff, base, nbits, sc),
+                                 1)
+            check(all(torch.equal(u, v) for u, v in zip(got, want)),
+                  f"ladder {'G2' if g2 else 'G1'} differs from the per-bit "
+                  f"K7 + K6 on the setup's scalars")
+            del want
+        else:
+            seq_ms = None
+            hf, gen = (c.host_g2_field, c.g2) if g2 else (c.host_fp, c.g1)
+            ks = get_ff(c.fr.name).decode_words(sc[:16].cpu(), mont=False)
+            for i, k in enumerate(ks):
+                check(jac_to_host(ff, hf, got, i) ==
+                      host.ec_mul(hf, gen, int(k)),
+                      f"ladder {'G2' if g2 else 'G1'} row {i} of the setup's "
+                      f"scalars != [s] G")
+        times_affine(res, rate, put, ff, got, g2, plain_rows=affine_rows,
+                     ops=ops)
         del got
         w = table_window(n, nbits)
         tab = -(-nbits // w) * ((1 << w) - 1)
         dbls, adds, tab_adds = ladder_work(sc, nbits, w)
         dbl_ops, add_ops = ops["jac_dbl" + op], ops["jac_madd" + op]
         put("batch_scalar_mul", sfx, [n, Lw, nbits], ms, pms,
-            n * (32 + 3 * Lw * 4) + 2 * tab * 2 * Lw * 4,
+            n * (4 * sc.shape[1] + 3 * Lw * 4) + 2 * tab * 2 * Lw * 4,
             (tab_adds + tab) * add_ops, err, plain_shape=pshape)
         dbl_add = bound_ms(0, dbls * dbl_ops + adds * add_ops, rate)[0]
         r.update({"per_bit_ms" + sfx: seq_ms, "bound_ms_dbl_add" + sfx: dbl_add,
@@ -1979,8 +2059,10 @@ def times_ladder(res, rate, put, ladder_sc, plain_rows=1024, cv="bn254"):
                                  "table_adds": tab_adds, "dbl": dbls,
                                  "add": adds}})
         log(f"ladder {cv} {'G2' if g2 else 'G1'} on {n} setup scalars: "
-            f"{ms:.3f} ms; the per-bit K7 + K6 sequence {seq_ms:.3f} ms; "
-            f"the same words, and those of the plain version on "
+            f"{ms:.3f} ms; " + (f"the per-bit K7 + K6 sequence {seq_ms:.3f} "
+                                f"ms, the same words" if per_bit else
+                                "16 rows equal host multiplications") +
+            f"; the words of the plain version on "
             f"{pshape[0]}; bound {r['bound_ms' + sfx]:.3f} ms for a "
             f"table at w = {w} ({tab} points, {tab_adds} adds); "
             f"double-and-add {dbl_add:.3f} ms ({dbls} doublings, {adds} "
@@ -2024,7 +2106,7 @@ def times_affine(res, rate, put, ff, P, g2, plain_rows=1024, ops=MUL_OPS):
     e = ff.p.modulus - 2
     M, S = ops["mul"], ops["sqr"]
     chain = (e.bit_length() - 1) * S + (bin(e).count("1") - 1) * M
-    if g2:       # norm 2S, zi 2M; zi^2 an Fp2 S, zi^3, x, y three Fp2 M
+    if is_fp2(ff):   # norm 2S, zi 2M; zi^2 an Fp2 S, zi^3, x, y 3 Fp2 M
         per = 2 * S + 2 * M + 2 * M + 3 * 3 * M
     else:        # zi^2 S; zi^3, x, y 3M
         per = S + 3 * M
@@ -2051,31 +2133,31 @@ def k9_work(W, c):
     return 2 * (W << (c - 1)) + W - 1, c * (W - 1)
 
 
-def times_k4_k9(res, rate, put, key_cols, cv="bn254"):
+def times_k4_k9(res, rate, put, key_cols, cv="bn254", plain_pts=1 << 16):
     """K4 (the digit kernel, the grouping, pass 1 and pass 2 timed apart)
     and K9 on the g16_20 setup key's A and B columns with random scalars,
-    at the main path's width. The plain K4 runs on the first 2^16 points
-    (against the kernel on the same slice)."""
+    at the main path's width. The plain K4 runs on the first plain_pts
+    points (against the kernel on the same slice)."""
     import torch
     from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ff import get_ff
     from gnark_tpu_torch.msm.bucket import (
-        _b3, _flat_points, bucket_acc, bucket_digits, bucket_fold,
+        _flat_points, bucket_acc, bucket_digits, bucket_fold, group_b3,
         bucket_group, bucket_msm, bucket_msm_plain, bucket_reduce,
         bucket_reduce_plain, signed_digits)
     from gnark_tpu_torch.msm.pippenger import scalar_limbs
     c = curves.CURVES[cv]
     nbits, fpn = c.fr.bits, c.fp.name
     ops = mul_ops(get_ff(fpn).nw)
+    sw = get_ff(c.fr.name).nw                     # a scalar's words
     gen_t = torch.Generator(device=DEV).manual_seed(6)
     for g2, col in ((False, key_cols[0]), (True, key_cols[1])):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
-        b3 = _b3(ff)
+        ff = group_ff(c, g2)
+        b3 = group_b3(c, g2)
         x, y, inf = _flat_points(ff, col)
         n, Lw = x.shape
-        sc = rand_dev_words(n, 8, gen_t, q=c.fr.modulus)
-        op, gs = ("2", "_g2") if g2 else ("", "")
+        sc = rand_dev_words(n, sw, gen_t, sw, c.fr.modulus)
+        op, gs = ("2" if is_fp2(ff) else "", "_g2" if g2 else "")
         # at the path's width only (c = 8's plain K4 and K9 took ~30 s a
         # curve of the time limit; phase 3 holds c = 8 on 4,096 points)
         for cc, cs in ((C_MAIN, ""),):
@@ -2085,7 +2167,8 @@ def times_k4_k9(res, rate, put, key_cols, cv="bn254"):
                 pms, want = timed(lambda: signed_digits(scalar_limbs(sc),
                                                         nbits, cc), 3)
                 W = digits.shape[0]
-                put("bucket_digits", cs, [n, 8], ms, pms, n * 32 + W * n * 4,
+                put("bucket_digits", cs, [n, sw], ms, pms,
+                    n * 4 * sw + W * n * 4,
                     0, 0 if torch.equal(digits, want) else 1)
             digits = bucket_digits(sc, nbits, cc, fpn)
             W, B = digits.shape[0], 1 << (cc - 1)
@@ -2105,7 +2188,7 @@ def times_k4_k9(res, rate, put, key_cols, cv="bn254"):
                 nseg * ops["proj_add" + op]
             nbytes = n * (2 * Lw * 4 + 1) + W * n * 4 + pairs * 8 + \
                 W * B * (3 * Lw * 4 + 12)
-            pn = 1 << 16
+            pn = plain_pts
             sl_ = (x[:pn], y[:pn], inf[:pn], digits[:, :pn])
             pms, want = timed(lambda: bucket_msm_plain(ff, b3, *sl_, cc), 1,
                               warm=False)
@@ -2141,22 +2224,22 @@ def sweep_widths(key_cols, cv="bn254"):
     one group element."""
     import torch
     from gnark_tpu_torch.ec import curves
-    from gnark_tpu_torch.ec.fp2 import get_ff2
     from gnark_tpu_torch.ff import get_ff
-    from gnark_tpu_torch.msm.bucket import msm_proj, window_bits
+    from gnark_tpu_torch.msm.bucket import group_b3, msm_proj, window_bits
     c = curves.CURVES[cv]
     gen_t = torch.Generator(device=DEV).manual_seed(8)
     for g2, col in ((False, key_cols[0]), (True, key_cols[1])):
-        ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
+        ff = group_ff(c, g2)
         n0 = col[0].shape[0]
-        sc = rand_dev_words(n0, 8, gen_t, q=c.fr.modulus)
+        sw = get_ff(c.fr.name).nw
+        sc = rand_dev_words(n0, sw, gen_t, sw, c.fr.modulus)
         for n in (n0, 1 << 16, 1 << 13):
             pts = tuple(a[:n] for a in col)
             row, first = {}, None
             for cc in SWEEP_C:
                 with setenv("GNARK_TPU_MSM_C", str(cc)):
-                    row[cc], R = timed(lambda: msm_proj(ff, pts, sc[:n],
-                                                        c.fr.bits), 3)
+                    row[cc], R = timed(lambda: msm_proj(
+                        ff, pts, sc[:n], c.fr.bits, b3=group_b3(c, g2)), 3)
                 first = first or R
                 check(proj_err(ff, R, first) == 0,
                       f"bucket MSM at c = {cc} differs from c = "
@@ -2414,6 +2497,9 @@ def phase_kernels_ff_ops(rng, res, cv="bn254"):
         + json.dumps(seen))
 
 
+TRACE_TRIES = 12
+
+
 def kernel_counts(cv):
     """The CUDA kernels one call of each of K10-K14 starts at 2^20 rows
     of curve cv's scalar field, by the profiler's device trace, taken in
@@ -2448,13 +2534,17 @@ def traced_ff_ops(cv):
              "plonk_numerator": lambda: plonk_numerator(fr, cols, pts, sc)}
     for fn in calls.values():      # loads the libraries outside the trace
         fn()
-    # the profiler's first session in a process can miss the kernels it
-    # should see: one is thrown away first
-    cuda_kernels(calls["ff_addsub"])
+    # the profiler's first sessions in a process can miss the kernels
+    # they should see (three in a row in one run, with two other
+    # processes on the card; the smoke runs up to four beside it): sessions are
+    # thrown away until one sees its call's kernels, at most TRACE_TRIES
+    for _ in range(TRACE_TRIES):
+        if cuda_kernels(calls["ff_addsub"]):
+            break
     wrappers = {w.__name__: w for w in all_wrappers()}
     seen = {}
     for k, fn in calls.items():
-        for _ in range(3):
+        for _ in range(TRACE_TRIES):
             n0 = wrappers[k].launches
             seen[k] = cuda_kernels(fn)
             # an empty trace of a call its wrapper says launched is the
@@ -2557,9 +2647,45 @@ def phase_plonk_small(res, cv="bn254"):
                 f"False")
 
 
+def plonk_refused(cv):
+    """On a GROTH16_ONLY curve: PLONK on the card raises before any work.
+    plonk.setup on an SRS made on the card (a ladder and an affine_words
+    launch) refuses, naming K11's inverse, with no launch of any other
+    kernel, and PLONK's field kernels refuse to bind for the 12-word
+    scalar field (no nvcc is started for them)."""
+    from gnark_tpu_torch import cuda
+    from gnark_tpu_torch.backend import kzg, plonk
+    from gnark_tpu_torch.backend.groth16_check import Cubic
+    from gnark_tpu_torch.ec import curves
+    from gnark_tpu_torch.frontend import compile_circuit
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+    c = curves.CURVES[cv]
+    cs = compile_circuit(Cubic(), c.fr, builder_cls=SCSBuilder)
+    srs = kzg.setup_srs(cv, 16, rng=random.Random(43), device=DEV)
+    wrappers = all_wrappers()
+    for wr in wrappers:
+        wr.launches = 0
+    try:
+        plonk.setup(cs, srs)
+        raise Fail(f"plonk over {cv}: setup on the card did not raise")
+    except ValueError as e:
+        check("by_inv" in str(e), f"plonk over {cv}: raised {e!r}")
+    launched = {wr.__name__: wr.launches for wr in wrappers if wr.launches}
+    check(not launched, f"plonk over {cv}: launched {launched} first")
+    for src in ("ff_ops", "plonk_num"):
+        try:
+            cuda.lib(src, c.fr.name)
+            raise Fail(f"{src} bound for {c.fr.name}")
+        except ValueError:
+            pass
+    log(f"plonk over {cv} on the card: setup raised before any launch "
+        f"(K11's inverse takes 8-word fields); ff_ops and plonk_num refuse "
+        f"to bind for {c.fr.name}")
+
+
 def phase_plonk20(res, cv="bn254"):
     """plonk_20: BN254 PLONK on 2^20 - 1 squaring-chain gates, N = 2^20
-    (the rho path; plonk_381_18, plonk_377_20 over the other curves, N =
+    (the rho path; plonk_381_18, plonk_377_18 over the other curves, N =
     2^cell_log): an SRS of N + 8 (one ladder and one affine_words
     launch), setup, three proves with every launch count set to 0 first
     (K10-K14, K1, K2 and the bucket MSM must launch; K3 and K5 must
@@ -2834,28 +2960,30 @@ def phase3(rng, cv, r):
     step(f"phase 3 {cv} K5-K8", phase_kernels_jac_ntt, rng, r, cv)
     step(f"phase 3 {cv} ladder", phase_kernels_ladder, rng, r, cv)
     step(f"phase 3 {cv} affine", phase_kernels_affine, rng, r, cv)
-    step(f"phase 3 {cv} K10-K14", phase_kernels_ff_ops, rng, r, cv)
+    if cv not in GROTH16_ONLY:
+        step(f"phase 3 {cv} K10-K14", phase_kernels_ff_ops, rng, r, cv)
 
 
 def result_rows(cv="bn254"):
     """The kernels line's rows, one a kernel of KERNELS (named
     "name@cv" beyond BN254), before any phase has filled them."""
     sfx = "" if cv == "bn254" else f"@{cv}"
+    built = KERNELS if cv not in GROTH16_ONLY else \
+        {k: v for k, v in KERNELS.items() if k not in FF_OPS_KERNELS}
     return {k: {"name": k + sfx, "route": "cuda", "source": s,
                 "replaces": r + ("" if cv == "bn254" else f" ({cv} build)"),
                 "launches": 0, "max_abs_err": None, "ms": None,
                 "plain_ms": None, "bound_ms": None, "bound_by": None,
                 "library_ms": None}
-            for k, (s, r) in KERNELS.items()}
+            for k, (s, r) in built.items()}
 
 
 def curve_checks(cv):
-    """The checks process of a curve of CURVES2 (--curve-checks cv):
-    once its libraries are in place (the parent's nvcc jobs, which the
-    parent finishes before it starts this process or, for a SHARED_FR
-    curve, right after BN254's), its phase 3
-    and cubic cell, which time nothing the kernels line reports but the
-    plain ladder. Prints its rows as the last line."""
+    """The checks process of BN254 or a curve of CURVES2 (--curve-checks
+    cv): once its libraries are in place (the parent's nvcc jobs, each
+    put in place as it ends), its phase 3 and, for a curve of CURVES2,
+    its cubic cell or PLONK refusal, which time nothing the kernels line
+    reports but the plain ladder. Prints its rows as the last line."""
     from gnark_tpu_torch import cuda
     from gnark_tpu_torch.msm.bucket import window_bits
     import torch
@@ -2872,7 +3000,10 @@ def curve_checks(cv):
     log(f"{cv}'s libraries built, waited {time.perf_counter() - t:.1f} s")
     r = result_rows(cv)
     phase3(random.Random(CHECKS_SEED), cv, r)
-    step(f"phase 5 {cell_name('cubic', cv)}", phase_plonk_small, r, cv)
+    if cv in GROTH16_ONLY:
+        step(f"plonk over {cv} refused", plonk_refused, cv)
+    elif cv != "bn254":
+        step(f"phase 5 {cell_name('cubic', cv)}", phase_plonk_small, r, cv)
     print(json.dumps(r), flush=True)
 
 
@@ -2899,9 +3030,31 @@ def join_checks(cv, job):
         print(f"  [{cv} checks] {line}", flush=True)
     check(proc.returncode == 0, f"{cv}'s checks process failed: "
           + "\n".join(lines[-40:]))
-    log(f"{cv}'s checks process (phase 3 and {cell_name('cubic', cv)}) "
-        f"joined, waited {time.perf_counter() - t:.1f} s")
+    log(f"{cv}'s checks process (phase 3" +
+        (" and the PLONK refusal" if cv in GROTH16_ONLY else
+         "" if cv == "bn254" else f" and {cell_name('cubic', cv)}") +
+        f") joined, waited {time.perf_counter() - t:.1f} s")
     return json.loads(lines[-1])
+
+
+def background(fn, *args):
+    """fn(*args) in a thread; returns a join that re-raises its error."""
+    import threading
+    err = []
+
+    def run():
+        try:
+            fn(*args)
+        except Exception as e:              # relayed by the join
+            err.append(e)
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if err:
+            raise err[0]
+    return join
 
 
 def log_builds(built):
@@ -2962,22 +3115,27 @@ def main(argv) -> int:
             log_builds(cuda.finish_builds(later[cv]))
             log(f"{cv}'s builds waited for {time.perf_counter() - t:.1f} s")
 
-        seen = cuda.builds(["bn254_fp", "bn254_fr"])
-        first = cuda.start_builds(seen)
+        seen, pairs = cuda.builds(["bn254_fp", "bn254_fr"]), {}
         for cv in CURVES2:
-            pairs = [b for b in cuda.builds([f"{cv}_fp", f"{cv}_fr"])
-                     if b not in seen]
-            seen += pairs
-            later[cv] = cuda.start_builds(pairs, nice=10)
+            pairs[cv] = [b for b in cuda.builds([f"{cv}_fp", f"{cv}_fr"])
+                         if b not in seen]
+            seen += pairs[cv]
+        # the longest builds (BW6-761's 24-word point sources) first
+        for cv in sorted(CURVES2, key=lambda cv: cv not in GROTH16_ONLY):
+            later[cv] = cuda.start_builds(pairs[cv], nice=10)
+        first = cuda.start_builds(cuda.builds(["bn254_fp", "bn254_fr"]))
+        # the other curves' libraries are put in place by a thread each
+        # as each nvcc ends, BN254's by the finish below; every curve's
+        # checks process starts now and waits for its libraries
+        bg = {} if quick else {cv: background(builds_of, cv)
+                               for cv in CURVES2}
         if not quick:
-            checks = {cv: start_checks(cv) for cv in SHARED_FR}
+            checks = {cv: start_checks(cv) for cv in ("bn254",) + CURVES2}
         log_builds(cuda.finish_builds(first))
         t1 = time.perf_counter()
         native._lib()
         log(f"build native solver: {time.perf_counter() - t1:.1f} s; "
             f"BN254's builds {time.perf_counter() - t:.1f} s")
-        for cv in checks:   # their libraries in place for the process
-            builds_of(cv)
 
         res = result_rows()
         # the other curves' kernels, rows of their own
@@ -2990,13 +3148,14 @@ def main(argv) -> int:
 
         def kernels_line():
             rows = list(res.values())
-            for cv in CURVES2:     # a SHARED_FR curve: the rows it timed
-                rows += [r for r in resc[cv].values()
-                         if cv not in SHARED_FR or r["ms"] is not None]
+            for cv in CURVES2:     # a SHARED_FR or GROTH16_ONLY curve:
+                rows += [r for r in resc[cv].values()   # the rows it timed
+                         if cv not in SHARED_FR + GROTH16_ONLY or
+                         r["ms"] is not None]
             return json.dumps({"kernels": rows})
 
-        phase3(rng, "bn254", res)
         if quick:
+            phase3(rng, "bn254", res)
             for cv in CURVES2:
                 builds_of(cv)
                 phase3(rng, cv, resc[cv])
@@ -3011,12 +3170,6 @@ def main(argv) -> int:
             print(kernels_line(), flush=True)
             print(smi, flush=True)
             return 0
-        for cv in SHARED_FR:
-            resc[cv] = join_checks(cv, checks.pop(cv))
-        for cv in CURVES2:          # beside phases 4 and 5
-            if cv not in SHARED_FR:
-                builds_of(cv)
-                checks[cv] = start_checks(cv)
         n_pts, cs, pk, proof = step("phase 4 g16_20", phase_main, res)
         del pk, proof
         ladder_sc, key_cols = step("phase 5 g16_20 setup", phase_setup, res,
@@ -3033,15 +3186,25 @@ def main(argv) -> int:
             arguments from its g16 cell."""
             if cv in checks:            # its phase 3 and cubic cell
                 resc[cv] = join_checks(cv, checks.pop(cv))
+            if cv in bg:
+                bg.pop(cv)()
             r = resc[cv]
             ladder_sc2, key_cols2, n_pts2 = step(
                 f"phase 5 {cell_name('g16', cv)}", phase_g16_2, r, rng, cv)
-            step(f"phase 5 {cell_name('plonk', cv)}", phase_plonk20, r, cv)
+            if cv not in GROTH16_ONLY:
+                step(f"phase 5 {cell_name('plonk', cv)}", phase_plonk20, r,
+                     cv)
             return r, rng, n_pts2, ladder_sc2, key_cols2, cv
 
         # BLS12-381's phase 5, BN254's phase 6, BLS12-381's; then each
         # further curve's phases 5 and 6
         args = phases_3_5(CURVES2[0])
+        # BN254's phase 3 rows: its errors and plain ladder, beside the
+        # launches phases 4 and 5 counted here
+        for k, row in join_checks("bn254", checks.pop("bn254")).items():
+            for f, v in row.items():
+                if res[k].get(f) is None:
+                    res[k][f] = v
         step("phase 6 bn254", phase_times, res, rng, n_pts, ladder_sc,
              key_cols)
         del ladder_sc, key_cols

@@ -1,5 +1,5 @@
-"""Groth16 Setup, Prove and Verify on the card (BN254, BLS12-381; the
-other curves on the CPU).
+"""Groth16 Setup, Prove and Verify on the card (BN254, BLS12-381,
+BLS12-377 and BW6-761, whose G2 lies over Fp; Grumpkin has no pairing).
 
 Counterpart of gnark_tpu.backend.groth16 without a mesh (reference
 backend/groth16/bn254/{setup,prove,verify}.go):
@@ -50,6 +50,7 @@ from gnark_tpu_torch.ec.fp2 import FF2, get_ff2
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_sub_mul
 from gnark_tpu_torch.logger import get_logger
+from gnark_tpu_torch.msm.bucket import group_b3
 from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul, jac_to_affine
 from gnark_tpu_torch.msm.pippenger import msm_raw
 from gnark_tpu_torch.ntt import get_domain
@@ -95,7 +96,8 @@ class ProvingKey:
     g1_b: tuple          # per wire
     g1_z: tuple          # per domain index (n)
     g1_k: tuple          # per private wire
-    g2_b: tuple          # per wire, over Fp2: x, y (n, 2, nw)
+    g2_b: tuple          # per wire: x, y (n, 2, nw) over Fp2, (n, nw)
+                         # over Fp (BW6-761)
     # host points
     g1_alpha: tuple
     g1_beta: tuple
@@ -189,9 +191,10 @@ def _hash_to_field(curve, point, recursion=False, public_committed=()) -> int:
 
 
 def _g2_field(curve):
-    if not curve.g2_over_fp2:
-        raise NotImplementedError(f"{curve.name}: G2 over Fp is not ported")
-    return get_ff2(curve.fp.name, curve.fp2_nr)
+    """The field G2's coordinates lie in: Fp2, or Fp itself (BW6-761)."""
+    if curve.g2_over_fp2:
+        return get_ff2(curve.fp.name, curve.fp2_nr)
+    return get_ff(curve.fp.name)
 
 
 def _encode_affine_host(ff, pts, device):
@@ -222,12 +225,14 @@ def _to_affine_host(ff, hf, kind, P):
     return (hf.mul(X, zi), hf.mul(Y, zi))
 
 
-def _msm_affine_host(ff, hf, points, scalars, nbits):
-    """The routed MSM (msm_raw) of device points and scalar words ->
-    host affine point; no points give the point at infinity."""
+def _msm_affine_host(ff, hf, points, scalars, nbits, b3):
+    """The routed MSM (msm_raw) of device points and scalar words in the
+    group whose 3 b is b3 -> host affine point; no points give the point
+    at infinity."""
     if points[0].shape[0] == 0:
         return host.INF
-    return _to_affine_host(ff, hf, *msm_raw(ff, points, scalars, nbits))
+    return _to_affine_host(ff, hf, *msm_raw(ff, points, scalars, nbits,
+                                            b3=b3))
 
 
 def _scalar_words(vals, nw: int, device) -> torch.Tensor:
@@ -394,7 +399,7 @@ def setup(cs: ConstraintSystem, curve_name: str, rng=None, device=None,
 
     def cols(lo, hi, g2=False):
         a, b, c = (x2, y2, inf2) if g2 else (x, y, inf)
-        if g2:
+        if g2 and isinstance(ff2, FF2):
             return (a[lo:hi].reshape(-1, 2, ff2.nw),
                     b[lo:hi].reshape(-1, 2, ff2.nw), c[lo:hi])
         return a[lo:hi], b[lo:hi], c[lo:hi]
@@ -435,21 +440,18 @@ def setup(cs: ConstraintSystem, curve_name: str, rng=None, device=None,
     return pk, vk
 
 
-def _curve_of_fp(fp_name: str):
-    return next(c for c in curves_mod.CURVES.values()
-                if c.fp.name == fp_name)
-
-
 @functools.lru_cache(maxsize=None)
-def _g1_stage_fn(fr_name: str, fp_name: str, N: int, nb_pub: int,
-                 nbits: int, device: str):
+def _g1_stage_fn(curve_name: str, N: int, nb_pub: int, nbits: int,
+                 device: str):
     """The G1 side of prove: computeH feeding the four G1 MSMs (Ar, Bs1,
     Krs2, Krs; routed by msm_raw at each call), then the affine
     conversion. f(...) returns (the four affine host points, h in plain
     words)."""
-    ffr = get_ff(fr_name)
-    ffp = get_ff(fp_name)
-    hfp = _curve_of_fp(fp_name).host_fp
+    curve = curves_mod.CURVES[curve_name]
+    ffr = get_ff(curve.fr.name)
+    ffp = get_ff(curve.fp.name)
+    hfp = curve.host_fp
+    b3 = group_b3(curve)
     dom = get_domain(ffr, N, device)
     r2 = torch.as_tensor(ffr.encode_words([ffr.p.R2_mod], mont=False),
                          device=device)
@@ -464,11 +466,11 @@ def _g1_stage_fn(fr_name: str, fp_name: str, N: int, nb_pub: int,
         hval = mont_mul_sub_mul(ffr, ac, bc, cc, den_m)
         h_plain = mont_mul(ffr, dom.ifft(hval, coset=True), one)
         mark("computeH")
-        ar = msm_raw(ffp, g1_a, wire_raw, nbits)
-        bs1 = msm_raw(ffp, g1_b, wire_raw, nbits)
+        ar = msm_raw(ffp, g1_a, wire_raw, nbits, b3=b3)
+        bs1 = msm_raw(ffp, g1_b, wire_raw, nbits, b3=b3)
         zp = tuple(a[: N - 1] for a in g1_z)
-        krs2 = msm_raw(ffp, zp, h_plain[: N - 1], nbits)
-        krs = msm_raw(ffp, g1_k, wire_raw[nb_pub:], nbits)
+        krs2 = msm_raw(ffp, zp, h_plain[: N - 1], nbits, b3=b3)
+        krs = msm_raw(ffp, g1_k, wire_raw[nb_pub:], nbits, b3=b3)
         mark("g1_msm")
         aff = [_to_affine_host(ffp, hfp, *P) for P in (ar, bs1, krs2, krs)]
         mark("to_affine")
@@ -480,10 +482,11 @@ def _g1_stage_fn(fr_name: str, fp_name: str, N: int, nb_pub: int,
 def _g2_stage_fn(curve_name: str, nbits: int):
     curve = curves_mod.CURVES[curve_name]
     ff2 = _g2_field(curve)
+    b3 = group_b3(curve, g2=True)
 
     def f(g2_b, wire_raw, mark=None):
         mark = mark or (lambda what: None)
-        r = msm_raw(ff2, g2_b, wire_raw, nbits)
+        r = msm_raw(ff2, g2_b, wire_raw, nbits, b3=b3)
         mark("g2_msm")
         aff = _to_affine_host(ff2, curve.host_g2_field, *r)
         mark("to_affine")
@@ -509,7 +512,8 @@ def _bsb22_hint(pk, device, commitments, poks, cm_vals, recursion,
         vals = [v % qq for v in inputs]
         hashed, priv = vals[:key.nb_public], vals[key.nb_public:]
         sc = _scalar_words(priv, ffr.nw, device)
-        C, pok = (_msm_affine_host(ffp, curve.host_fp, b, sc, curve.fr.bits)
+        C, pok = (_msm_affine_host(ffp, curve.host_fp, b, sc, curve.fr.bits,
+                                   group_b3(curve))
                   for b in (key.basis, key.basis_exp_sigma))
         commitments.append(C)
         poks.append(pok)
@@ -589,8 +593,8 @@ def prove(cs: ConstraintSystem, pk: ProvingKey, public, secret, rng=None,
     mark("upload")
 
     nbits = curve.fr.bits
-    g1_aff, _ = _g1_stage_fn(curve.fr.name, curve.fp.name, N, cs.nb_public,
-                             nbits, str(device))(
+    g1_aff, _ = _g1_stage_fn(curve.name, N, cs.nb_public, nbits,
+                             str(device))(
         abc_raw, wire_raw, den_m, pk.g1_a, pk.g1_b, pk.g1_z, pk.g1_k,
         mark=mark)
     ar_m, bs1_m, krs2_m, krs_m = g1_aff
@@ -711,7 +715,8 @@ def proving_key_from_arrays(d: dict, curve: str = "bn254",
                             device=None) -> ProvingKey:
     """Proving key on the device from plain data: d holds domain_n,
     g1_a/g1_b/g1_z/g1_k/g2_b as (x, y, inf) numpy arrays in 16-bit limbs
-    ((n, 16) for G1, (n, 2, 16) for G2, Montgomery form), host-int
+    ((n, L) over Fp, (n, 2, L) over Fp2, L = 2 nw: 16 on BN254, 48 on
+    BW6-761, whose G2 lies over Fp; Montgomery form), host-int
     affine points g1_alpha, g1_beta, g1_delta, g2_beta, g2_delta, and
     optionally commitment_keys: one dict per commitment with wires,
     basis and basis_exp_sigma ((x, y, inf) G1 arrays as above), g2_sigma

@@ -33,7 +33,6 @@ from gnark_tpu_torch.constraint.system import (ConstraintSystem,
                                                Instruction, R1C, SparseR1C)
 from gnark_tpu_torch.std.hash.mimc import MiMCGadget
 from gnark_tpu_torch.ec import host
-from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.frontend import Circuit, Public, Secret
 from gnark_tpu_torch.std import merkle, rangecheck
@@ -165,7 +164,7 @@ def known_log_key(cs, curve, device=None) -> groth16.ProvingKey:
     """Proving key of known discrete logs, through
     groth16.proving_key_from_arrays."""
     fp = get_ff(curve.fp.name)
-    ff2 = get_ff2(curve.fp.name, curve.fp2_nr)
+    ff2 = groth16._g2_field(curve)
     f1, f2 = curve.host_fp, curve.host_g2_field
     t1, t2 = [curve.g1], [curve.g2]
     for _ in range(TABLE - 1):
@@ -229,8 +228,8 @@ def check_prove(cs, pk, public, secret, rng, logs=None) -> None:
     fr = get_ff(curve.fr.name)
     den = pow(pow(curve.fr.generator, N, q) - 1, -1, q)
     den_m = torch.as_tensor(fr.encode_words([den]), device=pk.device)
-    g1 = groth16._g1_stage_fn(curve.fr.name, curve.fp.name, N,
-                              cs.nb_public, curve.fr.bits, str(pk.device))
+    g1 = groth16._g1_stage_fn(curve.name, N, cs.nb_public, curve.fr.bits,
+                              str(pk.device))
     (ar, bs1, krs2, krs), h = g1(abc_raw, wire_raw, den_m, pk.g1_a,
                                  pk.g1_b, pk.g1_z, pk.g1_k)
     bs2 = groth16._g2_stage_fn(curve.name, curve.fr.bits)(pk.g2_b, wire_raw)

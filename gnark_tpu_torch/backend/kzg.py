@@ -26,6 +26,7 @@ from gnark_tpu_torch.ec import curves as curves_mod
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.logger import get_logger
+from gnark_tpu_torch.msm.bucket import group_b3
 from gnark_tpu_torch.msm.fixed_base import batch_scalar_mul, jac_to_affine
 from gnark_tpu_torch.pairing import get_pairing
 
@@ -92,7 +93,7 @@ def commit_affine(srs: SRS, coeffs_plain):
     n = coeffs_plain.shape[0]
     return _msm_affine_host(get_ff(curve.fp.name), curve.host_fp,
                             tuple(a[:n] for a in srs.g1_powers),
-                            coeffs_plain, curve.fr.bits)
+                            coeffs_plain, curve.fr.bits, group_b3(curve))
 
 
 def commit(srs: SRS, coeffs: list) -> tuple:

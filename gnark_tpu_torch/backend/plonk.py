@@ -38,6 +38,7 @@ from gnark_tpu_torch.backend.transcript import MimcTranscript
 from gnark_tpu_torch.backend.transcript import outer_mimc_field as \
     _outer_mimc_field
 from gnark_tpu_torch.constraint import ConstraintSystem
+from gnark_tpu_torch.cuda import check_curve, resolve_device
 from gnark_tpu_torch.ec import curves as curves_mod
 from gnark_tpu_torch.ec import host
 from gnark_tpu_torch.ff import get_ff
@@ -173,6 +174,7 @@ def setup(cs: ConstraintSystem, srs: kzg_mod.SRS,
     if q != cs.q:
         raise ValueError("constraint system field != curve scalar field")
     dev = srs.device
+    check_curve(curve, dev, plonk=True)
     mark = _mark_fn(timings, dev, get_logger("gnark_tpu_torch"),
                     "plonk setup")
     nb_pub = cs.nb_public
@@ -248,10 +250,9 @@ def keys_from_arrays(d: dict, curve: str = "bn254", device=None):
       ql, qr, qm, qo, qk, ql_coeffs .. s3_coeffs, s1_vals .. s3_vals:
         limb arrays; perm: 3N ints; qcp_coeffs: a list of limb arrays."""
     from gnark_tpu_torch.backend import plonk_device as pdev
-    from gnark_tpu_torch.cuda import check_curve, resolve_device
     dev = resolve_device(device)
     c = curves_mod.CURVES[curve]
-    check_curve(c, dev)
+    check_curve(c, dev, plonk=True)
 
     def words(a):
         return torch.as_tensor(_words_from_limbs(a), device=dev)

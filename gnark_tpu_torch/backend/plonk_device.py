@@ -42,7 +42,7 @@ from gnark_tpu_torch.backend import kzg as kzg_mod
 from gnark_tpu_torch.backend.groth16 import _mark_fn, _words_u64
 from gnark_tpu_torch.backend.plonk_num import NumPoints, plonk_numerator
 from gnark_tpu_torch.constraint import solve_auto
-from gnark_tpu_torch.cuda import resolve_device
+from gnark_tpu_torch.cuda import check_curve, resolve_device
 from gnark_tpu_torch.ff import get_ff, ops
 from gnark_tpu_torch.ff.mont_mul import mont_mul
 from gnark_tpu_torch.logger import get_logger
@@ -378,6 +378,7 @@ def prove(cs, pk, public, secret, rng=None, hint_overrides=None,
     w = vk.generator
     u = vk.coset_shift
     dev = resolve_device(device)
+    check_curve(curve, dev, plonk=True)
     if pk.device != dev:
         raise ValueError(f"the proving key is on {pk.device}, not {dev}")
     rnd = rng.randrange if rng is not None else \

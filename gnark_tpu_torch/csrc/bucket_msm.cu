@@ -243,9 +243,10 @@ extern "C" int gt_bucket_acc(const void* px, const void* py,
   FieldC F = field_from_host((const uint32_t*)consts);
   cudaStream_t s = (cudaStream_t)stream;
   if (fp2)
-    bucket_acc_kernel<Fp2s, Fp2><<<blocks(2 * nseg_max), T, 0, s>>>(
+    GT_FP2_LAUNCH(bucket_acc_kernel<Fp2s, Fp2>
+                  <<<blocks(2 * nseg_max), T, 0, s>>>(
         (cp)px, (cp)py, (ci)entries, (ci)starts, (ci)counts, (ci)off, nb,
-        seg, (p)sx, (p)sy, (p)sz, fp2_from_host((const uint32_t*)b3), F);
+        seg, (p)sx, (p)sy, (p)sz, fp2_from_host((const uint32_t*)b3), F));
   else
     bucket_acc_kernel<Fp, Fp><<<blocks(nseg_max), T, 0, s>>>(
         (cp)px, (cp)py, (ci)entries, (ci)starts, (ci)counts, (ci)off, nb,
@@ -261,9 +262,10 @@ static int segfold(const void* ix, const void* iy, const void* iz,
                    cudaStream_t s) {
   FieldC F = field_from_host((const uint32_t*)consts);
   if (fp2)
-    bucket_segfold_kernel<Fp2s, Fp2, Last><<<blocks(2 * bound), T, 0, s>>>(
+    GT_FP2_LAUNCH(bucket_segfold_kernel<Fp2s, Fp2, Last>
+                  <<<blocks(2 * bound), T, 0, s>>>(
         (cp)ix, (cp)iy, (cp)iz, (ci)in_off, (ci)out_off, nb, seg, (p)ox,
-        (p)oy, (p)oz, fp2_from_host((const uint32_t*)b3), F);
+        (p)oy, (p)oz, fp2_from_host((const uint32_t*)b3), F));
   else
     bucket_segfold_kernel<Fp, Fp, Last><<<blocks(bound), T, 0, s>>>(
         (cp)ix, (cp)iy, (cp)iz, (ci)in_off, (ci)out_off, nb, seg, (p)ox,

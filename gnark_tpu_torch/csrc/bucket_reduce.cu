@@ -64,7 +64,9 @@ __global__ void __launch_bounds__(2 * GT_RT) bucket_reduce_kernel(
     uint32_t* pz, unsigned int* counter, uint32_t* ox, uint32_t* oy,
     uint32_t* oz, int W, int c, int L, int nblk, H b3h, FieldC F) {
   constexpr int K = Row<E>::lanes;
-  __shared__ Proj<E> sh[2 * GT_RT];
+  // a slot a thread: 36,864 B at 24 words (G1) and at 12 (G2 pairs),
+  // within the 48 KB of static shared memory
+  __shared__ Proj<E> sh[K * GT_RT];
   __shared__ int last;
   E b3;
   as_elem(b3, b3h);
@@ -155,10 +157,10 @@ extern "C" int gt_bucket_reduce(const void* bx, const void* by,
   typedef uint32_t* q;
   unsigned grid = (unsigned)(W * nblk);
   if (fp2)
-    bucket_reduce_kernel<Fp2s, Fp2><<<grid, 2 * T, 0, s>>>(
+    GT_FP2_LAUNCH(bucket_reduce_kernel<Fp2s, Fp2><<<grid, 2 * T, 0, s>>>(
         (cp)bx, (cp)by, (cp)bz, (q)px, (q)py, (q)pz, (unsigned int*)counter,
         (q)ox, (q)oy, (q)oz, W, c, L, nblk,
-        fp2_from_host((const uint32_t*)b3), F);
+        fp2_from_host((const uint32_t*)b3), F));
   else
     bucket_reduce_kernel<Fp, Fp><<<grid, T, 0, s>>>(
         (cp)bx, (cp)by, (cp)bz, (q)px, (q)py, (q)pz, (unsigned int*)counter,

@@ -1,5 +1,6 @@
-// K5: a whole radix-2 DIT NTT of n = 2^k points (8-word elements) in at
-// most two launches for n <= 2^13:
+// K5: a whole radix-2 DIT NTT of n = 2^k points (GT_NW-word elements: 8,
+// or 12 for BW6-761's scalar field) in at most two launches for n <=
+// 2^13:
 //   gt_ntt_seg   one block a segment of S = min(n, 1024) points: reads
 //                its points through the bit-reverse permutation (the
 //                gather folded into the load), runs stages 1..min(k, 10)
@@ -37,7 +38,8 @@ __global__ void __launch_bounds__(SEG / 2)
     ntt_seg_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ tw, int k, int S, int stages,
                    FieldC F) {
-  __shared__ uint32_t sh[GT_NW * SEG];
+  __shared__ uint32_t sh[GT_NW * SEG];   // 48 KB at 12 words: the static
+                                          // limit, exactly
   const int t = threadIdx.x;
   const unsigned base = blockIdx.x * (unsigned)S;
   for (int i = t; i < S; i += blockDim.x) {

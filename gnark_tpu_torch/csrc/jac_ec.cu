@@ -134,9 +134,9 @@ extern "C" int gt_jac_add_mixed(const void* x1, const void* y1,
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_madd_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
+    GT_FP2_LAUNCH(jac_madd_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (const uint8_t*)inf2,
-        stride2, (p)ox, (p)oy, (p)oz, n, F);
+        stride2, (p)ox, (p)oy, (p)oz, n, F));
   else
     jac_madd_kernel<Fp><<<blocks(n, 1), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (const uint8_t*)inf2,
@@ -153,8 +153,8 @@ extern "C" int gt_jac_double(const void* x1, const void* y1, const void* z1,
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_dbl_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
-        (cp)x1, (cp)y1, (cp)z1, (p)ox, (p)oy, (p)oz, n, F);
+    GT_FP2_LAUNCH(jac_dbl_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
+        (cp)x1, (cp)y1, (cp)z1, (p)ox, (p)oy, (p)oz, n, F));
   else
     jac_dbl_kernel<Fp><<<blocks(n, 1), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (p)ox, (p)oy, (p)oz, n, F);
@@ -171,9 +171,9 @@ extern "C" int gt_jac_add(const void* x1, const void* y1, const void* z1,
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_add_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
+    GT_FP2_LAUNCH(jac_add_kernel<Fp2s><<<blocks(n, 2), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
-        n, F);
+        n, F));
   else
     jac_add_kernel<Fp><<<blocks(n, 1), T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
@@ -193,8 +193,8 @@ extern "C" int gt_jac_fold(const void* x, const void* y, const void* z,
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    jac_fold_kernel<Fp2s><<<blocks(ncol, 2), T, 0, s>>>(
-        (cp)x, (cp)y, (cp)z, (p)ox, (p)oy, (p)oz, ncol, G, B, F);
+    GT_FP2_LAUNCH(jac_fold_kernel<Fp2s><<<blocks(ncol, 2), T, 0, s>>>(
+        (cp)x, (cp)y, (cp)z, (p)ox, (p)oy, (p)oz, ncol, G, B, F));
   else
     jac_fold_kernel<Fp><<<blocks(ncol, 1), T, 0, s>>>(
         (cp)x, (cp)y, (cp)z, (p)ox, (p)oy, (p)oz, ncol, G, B, F);

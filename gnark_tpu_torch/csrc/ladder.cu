@@ -79,9 +79,9 @@ extern "C" int gt_ladder(const void* sc, const void* bx, const void* by,
   const int lanes = fp2 ? 2 : 1;
   unsigned blocks = (unsigned)((lanes * n + T - 1) / T);
   if (fp2)
-    ladder_kernel<Fp2s, Fp2><<<blocks, T, 0, s>>>(
+    GT_FP2_LAUNCH(ladder_kernel<Fp2s, Fp2><<<blocks, T, 0, s>>>(
         (cp)sc, nbits, fp2_from_host((cp)bx), fp2_from_host((cp)by), (p)ox,
-        (p)oy, (p)oz, n, F);
+        (p)oy, (p)oz, n, F));
   else
     ladder_kernel<Fp, Fp><<<blocks, T, 0, s>>>(
         (cp)sc, nbits, fp_from_host((cp)bx), fp_from_host((cp)by), (p)ox,

@@ -1,7 +1,11 @@
 // Montgomery arithmetic over GT_NW x 32-bit words (set by the build: 8
 // for the BN254 fields and the BLS12 scalar fields, 12 for the BLS12
-// base fields), and its Fp2 lift, u^2 = -GT_NR_ABS (set by the build: 1
-// for BN254 and BLS12-381, 5 for BLS12-377).
+// base fields and BW6-761's scalar field, 24 for BW6-761's base field),
+// and its Fp2 lift, u^2 = -GT_NR_ABS (set by the build: 1 for BN254 and
+// BLS12-381, 5 for BLS12-377; 0 for a base field with no Fp2, BW6-761's,
+// whose G2 lies over Fp: the kernels' Fp2 instances are then compiled
+// out and a launch asking for one is refused). GT_SW (set by the build)
+// is the words of the point kernels' scalars: 8, 12 on BW6-761.
 //
 // Counterpart of gnark_tpu/ff/pallas_mont.py (TFF) and
 // gnark_tpu/ff/pallas_fp2.py (TFF2). Not a kernel: device functions that
@@ -47,7 +51,9 @@
 #ifndef GT_NW
 #define GT_NW 8        // words of a field element
 #endif
+#ifndef GT_SW
 #define GT_SW 8        // words of a scalar (the point kernels' scalars)
+#endif
 #ifndef GT_SOUND
 #define GT_SOUND 0     // 1: the sound class (4p >= R)
 #endif
@@ -55,10 +61,19 @@
 #define GT_NOINLINE 0  // 1: the Fp products as called functions
 #endif
 #ifndef GT_NR_ABS
-#define GT_NR_ABS 1    // Fp2 = Fp[u]/(u^2 + GT_NR_ABS)
+#define GT_NR_ABS 1    // Fp2 = Fp[u]/(u^2 + GT_NR_ABS); 0: no Fp2
 #endif
-static_assert(GT_NR_ABS >= 1 && GT_NR_ABS <= 8, "|u^2| is 1 to 8");
+static_assert(GT_NR_ABS >= 0 && GT_NR_ABS <= 8, "|u^2| is 0 to 8");
 static_assert(GT_NW % 4 == 0, "an element is whole 16-byte vectors");
+
+// A launch site's Fp2 branch, `if (fp2) GT_FP2_LAUNCH(kernel<Fp2..>
+// <<<...>>>(...)); else ...`: the launch itself where the build has an
+// Fp2, else a refusal (no Fp2 instance is compiled).
+#if GT_NR_ABS
+#define GT_FP2_LAUNCH(...) __VA_ARGS__
+#else
+#define GT_FP2_LAUNCH(...) return (int)cudaErrorInvalidValue
+#endif
 
 #if GT_NOINLINE
 #define GT_PRODUCT __device__ __noinline__

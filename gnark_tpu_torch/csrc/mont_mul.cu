@@ -185,13 +185,14 @@ extern "C" int gt_mont_mul_sub_mul(const void* a, const void* b,
   return (int)cudaGetLastError();
 }
 
-// X, Y, Z, x, y: n rows of 8 (fp2 = 0) or 16 (fp2 = 1) words
+// X, Y, Z, x, y: n rows of GT_NW (fp2 = 0) or 2 GT_NW (fp2 = 1) words
 extern "C" int gt_jac_to_affine(const void* X, const void* Y, const void* Z,
                                 void* x, void* y, long long n, int fp2,
                                 const void* consts, void* stream) {
   if (n <= 0) return 0;
   FieldC F = field_from_host((const uint32_t*)consts);
   cudaStream_t s = (cudaStream_t)stream;
-  return fp2 ? launch_affine<true>(X, Y, Z, x, y, n, F, s)
-             : launch_affine<false>(X, Y, Z, x, y, n, F, s);
+  if (fp2)
+    GT_FP2_LAUNCH(return launch_affine<true>(X, Y, Z, x, y, n, F, s));
+  return launch_affine<false>(X, Y, Z, x, y, n, F, s);
 }

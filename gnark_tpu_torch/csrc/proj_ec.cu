@@ -60,9 +60,9 @@ extern "C" int gt_proj_add(const void* x1, const void* y1, const void* z1,
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    proj_add_kernel<Fp2><<<blocks, T, 0, s>>>(
+    GT_FP2_LAUNCH(proj_add_kernel<Fp2><<<blocks, T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
-        n, fp2_from_host((const uint32_t*)b3), F);
+        n, fp2_from_host((const uint32_t*)b3), F));
   else
     proj_add_kernel<Fp><<<blocks, T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (cp)x2, (cp)y2, (cp)z2, (p)ox, (p)oy, (p)oz,
@@ -81,9 +81,9 @@ extern "C" int gt_proj_double(const void* x1, const void* y1, const void* z1,
   typedef const uint32_t* cp;
   typedef uint32_t* p;
   if (fp2)
-    proj_dbl_kernel<Fp2><<<blocks, T, 0, s>>>(
+    GT_FP2_LAUNCH(proj_dbl_kernel<Fp2><<<blocks, T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (p)ox, (p)oy, (p)oz, n,
-        fp2_from_host((const uint32_t*)b3), F);
+        fp2_from_host((const uint32_t*)b3), F));
   else
     proj_dbl_kernel<Fp><<<blocks, T, 0, s>>>(
         (cp)x1, (cp)y1, (cp)z1, (p)ox, (p)oy, (p)oz, n,

@@ -183,8 +183,10 @@ __device__ __forceinline__ void seg_step(const FsArgs& a, uint32_t* sd,
 }
 
 // block b: row b >> segs_log, segment b & (2^segs_log - 1), 2^G points;
-// at most 85 registers a thread, three blocks an SM
-__global__ void __launch_bounds__(FS_TMAX, 3)
+// at most 85 registers a thread, three blocks an SM (8 words); at 12
+// words 128 and two (a 2^10 segment's 79,872 B of shared memory: two
+// blocks an SM; the longest, 2^11, 159,744 B, takes one)
+__global__ void __launch_bounds__(FS_TMAX, GT_NW == 8 ? 3 : 2)
     fs_seg_kernel(FsArgs a, FieldC F) {
   extern __shared__ uint32_t sm[];
   const int G = a.G, n = 1 << G, half = n >> 1;
@@ -260,7 +262,9 @@ static size_t fs_smem(int G) {
 extern "C" long long gt_fs_smem(int G) { return (long long)fs_smem(G); }
 
 // The last G stages of `rows` rows of 2^L points (all of them if G = L),
-// in segments of 2^G (1 <= G <= 12); tw: the 2^(G-1) powers of the
+// in segments of 2^G (1 <= G <= 12, and fs_smem(G) within a block's
+// shared memory: G <= 11 at 12 words, fourstep.seg_log); tw: the
+// 2^(G-1) powers of the
 // segment root, word-major and index-folded as tw_pos reads them.
 extern "C" int gt_fs_seg(const void* in, const void* pre, void* out,
                          const void* post, const void* tw, long long in_rs,

@@ -5,9 +5,10 @@ library with a plain C interface under gnark_tpu_torch/_build/ (named by
 a hash of the sources and flags, so a stale build is never reused), and
 loaded with ctypes. A source is built once for each variant its fields
 need: the element's word count (GT_NW), the arithmetic class (GT_SOUND)
-of csrc/mont.cuh and, for a base field, its Fp2's |u^2| (GT_NR_ABS),
-each variant a library of its own name (scalars are GT_SW = 8 words in
-every build). Nothing is built when a
+of csrc/mont.cuh and, for a base field, its Fp2's |u^2| (GT_NR_ABS; 0
+for a base field with no Fp2, BW6-761's, whose build compiles no Fp2
+code) and the words of the point kernels' scalars (GT_SW: 8, 12 on
+BW6-761), each variant a library of its own name. Nothing is built when a
 module is imported: the first launch of a kernel builds its library, and
 `start_builds` / `finish_builds` build all of them at once, one nvcc
 process per source and variant, started together.
@@ -46,16 +47,19 @@ class KernelField(NamedTuple):
     2^(32 nw); sound, for 4p >= R: every operation takes values < 2p and
     gives them < p); base, a curve's base field (the point kernels) or
     else a scalar field (the field kernels); nr, u^2 of the curve's Fp2
-    (base fields)."""
+    (base fields; None: the curve has no Fp2, its G2 lies over Fp); sw,
+    the words of the scalars the point kernels take (base fields)."""
     nw: int
     sound: bool
     base: bool
     nr: int | None = None
+    sw: int = 8
 
 
-# Fields the kernels take: BN254, BLS12-381 and BLS12-377 (its Fp2 with
-# u^2 = -5; its scalar field on BN254's 8-word lazy builds). BW6-761
-# (24-word Fp, G2 over Fp) is not among them.
+# Fields the kernels take: BN254, BLS12-381, BLS12-377 (its Fp2 with u^2
+# = -5; its scalar field on BN254's 8-word lazy builds) and BW6-761 (a
+# 24-word Fp with no Fp2, 12-word scalars; its scalar field on BLS12-381's
+# 12-word lazy mont_mul build).
 KERNEL_FIELDS = {
     "bn254_fp": KernelField(nw=8, sound=False, base=True, nr=-1),
     "bn254_fr": KernelField(nw=8, sound=False, base=False),
@@ -63,29 +67,40 @@ KERNEL_FIELDS = {
     "bls12_381_fr": KernelField(nw=8, sound=True, base=False),
     "bls12_377_fp": KernelField(nw=12, sound=False, base=True, nr=-5),
     "bls12_377_fr": KernelField(nw=8, sound=False, base=False),
+    "bw6_761_fp": KernelField(nw=24, sound=False, base=True, sw=12),
+    "bw6_761_fr": KernelField(nw=12, sound=False, base=False),
 }
-# The sources a base field's (points) and a scalar field's kernels need.
+# The sources a base field's (points) and a scalar field's kernels need;
+# a scalar field wider than 8 words builds Groth16's alone (K11's
+# inverse, csrc/mont.cuh by_inv, takes 8 words only, and with it
+# ff_ops and plonk_num: PLONK).
 BASE_SOURCES = ("mont_mul", "proj_ec", "bucket_msm", "jac_ec",
                 "bucket_reduce", "ladder")
 SCALAR_SOURCES = ("mont_mul", "row_fft", "butterfly", "ff_ops", "plonk_num")
+GROTH16_SCALAR_SOURCES = ("mont_mul", "row_fft", "butterfly")
 
 
 class Variant(NamedTuple):
-    """One build of a source: GT_NW, GT_SOUND and GT_NR_ABS (|u^2| of
-    the Fp2 the point kernels take; 1 for a scalar field's build)."""
+    """One build of a source: GT_NW, GT_SOUND, GT_NR_ABS (|u^2| of the
+    Fp2 the point kernels take; 0: no Fp2 code; 1 for a scalar field's
+    build) and GT_SW (the point kernels' scalar words; 8 for a scalar
+    field's build)."""
     nw: int
     sound: bool
     nr_abs: int
+    sw: int = 8
 
     @property
     def tag(self) -> str:
         return (f"w{self.nw}" + ("-sound" if self.sound else "")
-                + (f"-nr{self.nr_abs}" if self.nr_abs != 1 else ""))
+                + (f"-sw{self.sw}" if self.sw != 8 else "")
+                + ("-nofp2" if self.nr_abs == 0 else
+                   f"-nr{self.nr_abs}" if self.nr_abs != 1 else ""))
 
     @property
     def flags(self) -> tuple:
         return (f"-DGT_NW={self.nw}", f"-DGT_SOUND={int(self.sound)}",
-                f"-DGT_NR_ABS={self.nr_abs}")
+                f"-DGT_NR_ABS={self.nr_abs}", f"-DGT_SW={self.sw}")
 
 
 def kernel_field(name: str) -> KernelField:
@@ -98,17 +113,27 @@ def kernel_field(name: str) -> KernelField:
 
 def variant(field: str) -> Variant:
     kf = kernel_field(field)
-    return Variant(kf.nw, kf.sound, -kf.nr if kf.base else 1)
+    if not kf.base:
+        return Variant(kf.nw, kf.sound, 1)
+    return Variant(kf.nw, kf.sound, 0 if kf.nr is None else -kf.nr, kf.sw)
+
+
+def sources(field: str) -> tuple:
+    """The sources field's kernels are built from."""
+    kf = kernel_field(field)
+    if kf.base:
+        return BASE_SOURCES
+    return SCALAR_SOURCES if kf.nw == 8 else GROTH16_SCALAR_SOURCES
 
 
 def builds(fields=None) -> list:
     """(source, Variant) of every library the fields' kernels use, each
     once (BN254's two fields and BLS12-377's scalar field share one build
-    of each source)."""
+    of each source, BLS12-381's Fp and BW6-761's scalar field mont_mul's
+    12-word one)."""
     out = []
     for f in (KERNEL_FIELDS if fields is None else fields):
-        srcs = BASE_SOURCES if kernel_field(f).base else SCALAR_SOURCES
-        out += [(s, variant(f)) for s in srcs]
+        out += [(s, variant(f)) for s in sources(f)]
     return list(dict.fromkeys(out))
 
 
@@ -127,16 +152,27 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def check_curve(curve, device: torch.device) -> None:
+def check_curve(curve, device: torch.device, plonk: bool = False) -> None:
     """On the card, raise unless the kernels take both fields of curve
-    (and its Fp2's u^2); no path falls back to the CPU."""
+    (and its G2: over Fp2 with the build's u^2, or over Fp itself, the
+    base field's own build) and, with plonk, the scalar field's PLONK
+    kernels (K10-K14, 8 words only); no path falls back to the CPU."""
     if device.type != "cuda":
         return
     nr = kernel_field(curve.fp.name).nr
     kernel_field(curve.fr.name)
-    if curve.g2 is not None and (curve.fp2_nr - nr) % curve.fp.modulus:
+    if plonk and "ff_ops" not in sources(curve.fr.name):
+        raise ValueError(
+            f"no CUDA kernel for PLONK over {curve.name}: K11's inverse "
+            f"(csrc/mont.cuh by_inv) takes 8-word fields only, not "
+            f"{curve.name}'s {kernel_field(curve.fr.name).nw}-word Fr")
+    if curve.g2 is None or not curve.g2_over_fp2:
+        return
+    if nr is None or (curve.fp2_nr - nr) % curve.fp.modulus:
         raise ValueError(f"no CUDA kernel for {curve.name}'s G2 (the "
-                         f"kernels take Fp2 with u^2 = {nr})")
+                         f"kernels over {curve.fp.name} take "
+                         + ("no Fp2" if nr is None else
+                            f"Fp2 with u^2 = {nr}") + ")")
 
 
 def _nvcc() -> str:
@@ -239,7 +275,12 @@ def _lib(name: str, v: Variant) -> ctypes.CDLL:
 
 
 def lib(name: str, field: str) -> ctypes.CDLL:
-    """Library `name` as built for `field`'s kernels."""
+    """Library `name` as built for `field`'s kernels; raises, before any
+    build, for a field-kernel source the field is not built for (PLONK's
+    ff_ops and plonk_num over a scalar field wider than 8 words)."""
+    if name not in BASE_SOURCES + sources(field):
+        raise ValueError(f"no {name} kernels for {field} (built: "
+                         f"{', '.join(sources(field))})")
     return _lib(name, variant(field))
 
 

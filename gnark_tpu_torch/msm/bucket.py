@@ -62,26 +62,18 @@ def window_bits(n: int, device) -> int:
     return next((c for lim, c in _CARD_C if n <= lim), _CARD_C[-1][1])
 
 
-@functools.lru_cache(maxsize=None)
-def curve_b3(field_name: str):
-    """3*b mod p for the a=0 curve whose base field is `field_name`."""
-    from gnark_tpu_torch.ec import curves
-    for c in curves.CURVES.values():
-        if c.fp.name == field_name:
-            return 3 * c.b % c.fp.modulus
-    return None
-
-
-@functools.lru_cache(maxsize=None)
-def curve_b3_g2(field_name: str):
-    """3*b2 as an Fp2 pair for the curve whose G2 twist lives over Fp2
-    of `field_name`."""
-    from gnark_tpu_torch.ec import curves
-    for c in curves.CURVES.values():
-        if c.fp.name == field_name and c.g2_over_fp2:
-            p = c.fp.modulus
-            return (3 * c.b2[0] % p, 3 * c.b2[1] % p)
-    return None
+def group_b3(curve, g2: bool = False):
+    """3 b mod p of the curve's G1 (y^2 = x^3 + b) or, with g2, of its
+    G2 (b2: an int when G2 lies over Fp, as on BW6-761, else an Fp2
+    pair): the constant of the complete projective formulas (K3, K4,
+    K9). Taken by group, never by base field: BW6-761's G1 (b = -1) and
+    G2 (b2 = 4) share one Fp."""
+    p = curve.fp.modulus
+    if not g2:
+        return 3 * curve.b % p
+    if curve.g2_over_fp2:
+        return (3 * curve.b2[0] % p, 3 * curve.b2[1] % p)
+    return 3 * curve.b2 % p
 
 
 def signed_digits(scalars: torch.Tensor, nbits: int, c: int):
@@ -365,10 +357,10 @@ def _digits_fn(field):
 
 
 def bucket_digits(words: torch.Tensor, nbits: int, c: int, field: str):
-    """Signed c-bit digits of plain scalars: (n, 8) int32 words -> (W,
+    """Signed c-bit digits of plain scalars: (n, sw) int32 words -> (W,
     n) int32, the digits of signed_digits (its plain version) on their
     limbs; on the card, one kernel of K4's source as built for the base
-    field `field`."""
+    field `field`, whose scalars are sw words (8; 12 on BW6-761)."""
     if words.device.type == "cpu":
         return signed_digits(scalar_limbs(words), nbits, c)
     out = _digits_card(words, nbits, c, field)
@@ -378,9 +370,10 @@ def bucket_digits(words: torch.Tensor, nbits: int, c: int, field: str):
 
 def _digits_card(words, nbits, c, field):
     n = words.shape[0]
-    if not 2 <= c <= 16 or nbits > 32 * 8:
+    sw = cuda.kernel_field(field).sw
+    if not 2 <= c <= 16 or nbits > 32 * sw:
         raise ValueError(f"bucket_digits: c = {c}, nbits = {nbits}")
-    words = cuda.dev_words(words, "bucket_digits scalars", (n, 8))
+    words = cuda.dev_words(words, "bucket_digits scalars", (n, sw))
     W = digit_count(nbits, c)
     out = torch.empty((W, n), dtype=torch.int32, device=words.device)
     fn = _digits_fn(field)
@@ -488,18 +481,9 @@ def _flat_points(ff, points):
     return x.reshape(n, -1), y.reshape(n, -1), inf.reshape(n)
 
 
-def _b3(ff):
-    b3 = curve_b3_g2(ff.p.name) if is_fp2(ff) else curve_b3(ff.p.name)
-    if b3 is None:
-        raise ValueError(f"no a=0 curve registered for base field "
-                         f"{ff.p.name}")
-    return b3
-
-
-def _msm_device(ff, points, digits, W: int, c: int):
+def _msm_device(ff, b3, points, digits, W: int, c: int):
     """One bucket MSM: K4, then K9. Returns a projective point of (1, Lw)
     canonical words."""
-    b3 = _b3(ff)
     x, y, inf = _flat_points(ff, points)
     P = bucket_msm(ff, b3, x, y, inf, digits, c)
     return bucket_reduce(ff, b3, P, W, c)
@@ -523,8 +507,10 @@ def chunk_plan(n: int, nbits: int, device, chunk: int | None = None):
             for off in range(0, n, size)]
 
 
-def msm_proj(ff, points, scalars, nbits: int, chunk: int | None = None):
-    """Projective MSM result ((1, Lw) words) streamed in the chunks of
+def msm_proj(ff, points, scalars, nbits: int, chunk: int | None = None, *,
+             b3):
+    """Projective MSM result ((1, Lw) words) of the group whose 3 b is
+    b3 (group_b3), streamed in the chunks of
     chunk_plan (default: all the points in one K4 call, as long as K4's
     int32 offsets hold them; the card's memory holds a 2^20-constraint
     prove's key and buckets at once); the chunk partials are folded with
@@ -533,9 +519,9 @@ def msm_proj(ff, points, scalars, nbits: int, chunk: int | None = None):
     acc = None
     for off, end, c in chunk_plan(x.shape[0], nbits, x.device, chunk):
         digits = bucket_digits(scalars[off:end], nbits, c, lib_field(ff))
-        part = _msm_device(ff, (x[off:end], y[off:end], inf[off:end]),
+        part = _msm_device(ff, b3, (x[off:end], y[off:end], inf[off:end]),
                            digits, digits.shape[0], c)
-        acc = part if acc is None else proj_add(ff, _b3(ff), acc, part)
+        acc = part if acc is None else proj_add(ff, b3, acc, part)
     return acc
 
 
@@ -548,13 +534,15 @@ def _elem_shape(ff):
     return (2, ff.nw) if is_fp2(ff) else (ff.nw,)
 
 
-def msm_bucket(ff, points, scalars, nbits: int):
+def msm_bucket(ff, points, scalars, nbits: int, *, b3):
     """Single-shot bucket MSM; Jacobian result (the public contract)."""
-    return msm_bucket_chunked(ff, points, scalars, nbits)
+    return msm_bucket_chunked(ff, points, scalars, nbits, b3=b3)
 
 
 def msm_bucket_chunked(ff, points, scalars, nbits: int,
-                       chunk: int | None = None):
+                       chunk: int | None = None, *, b3):
     """Chunked bucket MSM (the reference's contract: fixed-size chunks,
-    partials folded; chunk=None is one chunk); Jacobian result."""
-    return _to_jacobian(ff, msm_proj(ff, points, scalars, nbits, chunk))
+    partials folded; chunk=None is one chunk); Jacobian result. b3: the
+    group's 3 b (group_b3)."""
+    return _to_jacobian(ff, msm_proj(ff, points, scalars, nbits, chunk,
+                                     b3=b3))

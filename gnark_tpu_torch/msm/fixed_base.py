@@ -15,9 +15,11 @@ result is one launch of K1's affine kernel (csrc/mont_mul.cu,
 affine_words: batch inversion); its plain version is the Fermat chain
 of plain products over the batch that the reference runs.
 
-Points are (n, Lw) int32 words (Lw = nw for G1, 2 nw for flat G2 rows;
-nw = 8 on BN254, 12 on BLS12-381); scalars are (n, 8) int32 words of
-plain (non-Montgomery) integers (csrc/mont.cuh's GT_SW).
+Points are (n, Lw) int32 words (Lw = nw over Fp, 2 nw for flat rows over
+Fp2; nw = 8 on BN254, 12 on BLS12-381 and BLS12-377, 24 on BW6-761, whose
+G2 lies over Fp and takes the G1 kernels); scalars are (n, sw) int32
+words of plain (non-Montgomery) integers, sw the words of the curve's
+scalar field (csrc/mont.cuh's GT_SW: 8, 12 on BW6-761).
 """
 
 from __future__ import annotations
@@ -95,7 +97,11 @@ def batch_scalar_mul(ff, base_affine, nbits: int, scalars: torch.Tensor):
         return batch_scalar_mul_plain(ff, base_affine, nbits, scalars)
     consts = kernel_field(ff)
     n = scalars.shape[0]
-    sc = cuda.dev_words(scalars, "batch_scalar_mul scalars", (n, 8))
+    sw = cuda.kernel_field(lib_field(ff)).sw
+    if nbits > 32 * sw:
+        raise ValueError(f"batch_scalar_mul: nbits = {nbits} past the "
+                         f"kernel's {sw}-word scalars")
+    sc = cuda.dev_words(scalars, "batch_scalar_mul scalars", (n, sw))
     bx, by = (np.ascontiguousarray(a.reshape(-1).cpu().numpy()
                                    .view(np.uint32)) for a in base_affine)
     out = tuple(torch.empty((n, _lw(ff)), dtype=torch.int32,

@@ -15,7 +15,11 @@ Counterpart of gnark_tpu.msm.pippenger. Two paths:
     Horner with c doublings (K7) and one add (K8) each.
 GNARK_TPU_MSM_IMPL (read at each call, as the reference reads it):
 "bucket", "scan", or "auto" (default), which takes the bucket path on the
-card and on the CPU; a field without an a = 0 curve takes the scan path.
+card and on the CPU. The bucket path's complete formulas need the group's
+3 b, which every caller passes (b3; msm/bucket.group_b3): it is taken by
+group, not by field, since two groups can share a field (BW6-761's G1 and
+G2 lie over one Fp with b = -1 and b2 = 4); b3 = None (no a = 0 curve)
+takes the scan path.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ import os
 import torch
 
 from gnark_tpu_torch.ec import jac_ec
-from gnark_tpu_torch.ec.fp2 import FF2
 from gnark_tpu_torch.ec.weierstrass import jac_inf
 from gnark_tpu_torch.fields import LIMB_BITS
 
@@ -169,29 +172,21 @@ def _msm_scan(f, points, scalars, nbits: int, c: int, G: int, n_class: int):
     return R
 
 
-def _bucket_curve(f) -> bool:
-    """Whether the bucket path takes this group: an a = 0 curve is
-    registered for its base field (and, for G2, its twist over Fp2)."""
-    from gnark_tpu_torch.msm.bucket import curve_b3, curve_b3_g2
-    if isinstance(f, FF2):
-        return curve_b3_g2(f.p.name) is not None
-    return curve_b3(f.p.name) is not None
-
-
 def msm_raw(f, points, scalars, nbits: int, c: int | None = None,
-            groups: int | None = None):
+            groups: int | None = None, *, b3):
     """The routed MSM on the points' device, in the path's own
     coordinates: ("proj", P) from the bucket path (projective) or
     ("jac", P) from the scan path (Jacobian), P of (1, Lw) words.
-    c, groups: the scan path's window width and group count (default:
-    _pick_params)."""
+    b3: 3 b of the points' group (bucket.group_b3), None for a group
+    without an a = 0 curve (the scan path). c, groups: the scan path's
+    window width and group count (default: _pick_params)."""
     impl = os.environ.get("GNARK_TPU_MSM_IMPL", "auto")
     if impl not in ("auto", "bucket", "scan"):
         raise ValueError(f"GNARK_TPU_MSM_IMPL={impl!r}: want auto, bucket "
                          f"or scan")
-    if impl != "scan" and _bucket_curve(f):
+    if impl != "scan" and b3 is not None:
         from gnark_tpu_torch.msm.bucket import msm_proj
-        return "proj", msm_proj(f, points, scalars, nbits)
+        return "proj", msm_proj(f, points, scalars, nbits, b3=b3)
     x, y, inf = points
     n = x.shape[0]
     n_class = 64
@@ -205,20 +200,24 @@ def msm_raw(f, points, scalars, nbits: int, c: int | None = None,
 
 
 def msm(f, points, scalars, nbits: int, device=None, c: int | None = None,
-        groups: int | None = None):
+        groups: int | None = None, *, b3):
     """MSM: sum_i scalars[i] * points[i], routed by GNARK_TPU_MSM_IMPL.
 
-    points:  (x, y, inf): x, y (n, nw) words (G1) or (n, 2, nw) (G2),
+    points:  (x, y, inf): x, y (n, nw) words (over Fp) or (n, 2, nw)
+             (over Fp2),
              Montgomery form; inf (n,) bool
     scalars: (n, nw) int32 words of PLAIN (non-Montgomery) scalars
     nbits:   scalar bit width (fr.bits)
+    b3:      3 b of the points' group (bucket.group_b3: G1's b or G2's
+             b2), or None for the scan path
     device:  where it runs (None: the card); the inputs are moved there
     Returns a Jacobian point of word tensors (batch shape ())."""
     from gnark_tpu_torch.cuda import resolve_device
     from gnark_tpu_torch.msm.bucket import _elem_shape, _to_jacobian
     dev = resolve_device(device)
     points = tuple(a.to(dev) for a in points)
-    kind, P = msm_raw(f, points, scalars.to(dev), nbits, c, groups)
+    kind, P = msm_raw(f, points, scalars.to(dev), nbits, c, groups,
+                      b3=b3)
     if kind == "proj":
         return _to_jacobian(f, P)
     return tuple(a.reshape(_elem_shape(f)) for a in P)

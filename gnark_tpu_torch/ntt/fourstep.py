@@ -21,10 +21,10 @@ a transpose, `row_fft_plain`, the mid product, a transpose,
 products. `row_fft` (all DIF stages of contiguous rows, no fusion) stays
 an entry point on the same kernel.
 
-Rows longer than 2^SMEM_LOG points do not fit a block's shared memory:
-`row_plan` runs their first stages as register passes over global
-memory and the rest in shared memory on independent segments of
-2^SMEM_LOG.
+Rows longer than 2^seg_log(nw) points (2^SMEM_LOG at 8 words, 2^11 at
+12) do not fit a block's shared memory: `row_plan` runs their first
+stages as register passes over global memory and the rest in shared
+memory on independent segments of that length.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from gnark_tpu_torch import cuda
 from gnark_tpu_torch.ff import FF
 from gnark_tpu_torch.ff.mont_mul import mont_mul, mont_mul_plain
 
-SMEM_LOG = 12          # the longest row segment a block holds on chip
+SMEM_LOG = 12          # the longest row segment a block holds (8 words)
 PASS_MAX = 3           # stages of one global register pass
 SMEM_LIMIT = 232448    # dynamic shared memory one H100 block may use
 
@@ -107,13 +107,23 @@ def root_powers(ff: FF, m: int, w: int) -> np.ndarray:
     return mont_powers(ff, [w], max(m // 2, 1))
 
 
-def row_plan(S: int) -> tuple:
+def seg_log(nw: int = 8) -> int:
+    """The longest row segment (its log2) a block holds on chip at nw
+    words an element: SMEM_LOG, less where its shared memory would pass
+    SMEM_LIMIT (12 words: 2^11, 159,744 B; 2^12 would take 319,488)."""
+    G = SMEM_LOG
+    while G > 1 and seg_smem_bytes(G, nw) > SMEM_LIMIT:
+        G -= 1
+    return G
+
+
+def row_plan(S: int, nw: int = 8) -> tuple:
     """(the stage counts of the global register passes, the segment log
-    G) for rows of S = 2^L points: every stage past 2^SMEM_LOG (the
-    first L - G) in passes of at most PASS_MAX stages, the last G in
-    shared memory on segments of 2^G."""
+    G) for rows of S = 2^L points of nw words: every stage past
+    2^seg_log(nw) (the first L - G) in passes of at most PASS_MAX
+    stages, the last G in shared memory on segments of 2^G."""
     L = S.bit_length() - 1
-    G = min(L, SMEM_LOG)
+    G = min(L, seg_log(nw))
     g, passes = L - G, []
     while g > 0:
         passes.append(min(PASS_MAX, g))
@@ -121,14 +131,15 @@ def row_plan(S: int) -> tuple:
     return tuple(passes), G
 
 
-def seg_smem_bytes(G: int) -> int:
-    """Dynamic shared memory of one segment block, a copy of
-    csrc/row_fft.cu's fs_smem (the card tests hold it to the kernel's
-    gt_fs_smem): the points with a pad word every 8 (when the segment
-    has more than one stage) and the segment root's 2^(G-1) powers."""
+def seg_smem_bytes(G: int, nw: int = 8) -> int:
+    """Dynamic shared memory of one segment block at nw words an
+    element, a copy of csrc/row_fft.cu's fs_smem (the card tests hold it
+    to the kernel's gt_fs_smem in each build): the points with a pad
+    word every 8 (when the segment has more than one stage) and the
+    segment root's 2^(G-1) powers."""
     n = 1 << G
-    pts = 8 * (n + n // 8) if G > 1 else 0
-    return (pts + 8 * (n // 2)) * 4
+    pts = nw * (n + n // 8) if G > 1 else 0
+    return (pts + nw * (n // 2)) * 4
 
 
 def fourstep_shape(n: int) -> tuple:
@@ -230,7 +241,7 @@ def row_fft(ff: FF, x: torch.Tensor, pw: torch.Tensor,
             tw: torch.Tensor | None = None) -> torch.Tensor:
     """x: (rows, S, nw) words < 2p, contiguous rows; pw: the row root's
     powers (root_powers, (S/2, nw)); tw: the kernel's table for them,
-    seg_table(pw, log2 S, row_plan(S)[1]), made here when None (a caller
+    seg_table(pw, log2 S, row_plan(S, nw)[1]), made here when None (a caller
     that repeats a row length passes it, as FourStep does). All log2 S
     DIF stages of each row; output bit-reversed within each row,
     canonical."""
@@ -253,7 +264,7 @@ def _row_fft_card(ff, x, pw, tw):
     x = cuda.dev_words(x, "row_fft x")
     pw = cuda.dev_words(pw, "row_fft pw")
     out = torch.empty_like(x)
-    rplan = row_plan(S)
+    rplan = row_plan(S, ff.nw)
     tw = seg_table(pw, k, rplan[1]) if tw is None else \
         cuda.dev_words(tw, "row_fft tw")
     row_fft.launches += _rows_card(ff, x, (S, 1), None, out, (S, 1), None,
@@ -282,7 +293,7 @@ class FourStep:
 
         self.pw = [dev(root_powers(ff, m, pow(w, n // m, q)))
                    for m in (S, n1)]
-        self.rplan = [row_plan(m) for m in (S, n1)]
+        self.rplan = [row_plan(m, ff.nw) for m in (S, n1)]
         self.tw = [seg_table(p, m.bit_length() - 1, rp[1])
                    for p, m, rp in zip(self.pw, (S, n1), self.rplan)]
         self.mid_t = power_table(ff, [pow(w, int(r), q) for r in bitrev(S)],
@@ -323,7 +334,7 @@ def fourstep_ntt(plan: FourStep, x, pre=None, post=None) -> torch.Tensor:
     """The four-step transform of x ((n, nw) words < 2p) with an
     optional pre-scale ((n, nw)) and post-scale ((n, nw) or (1, nw)):
     natural order, canonical. On the card two launches of K2 (one more a
-    global pass for rows past 2^SMEM_LOG)."""
+    global pass for rows past 2^seg_log(nw))."""
     ff = plan.ff
     n, nw = plan.n, ff.nw
     if tuple(x.shape) != (n, nw) or \

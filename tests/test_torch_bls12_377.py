@@ -85,19 +85,19 @@ class RefCubic(RefCircuit):
 
 def test_kernel_fields_and_builds_take_bls12_377():
     """BLS12-377's Fp is a 12-word lazy base field with u^2 = -5, its
-    Fr an 8-word lazy scalar field; the builds are 27 libraries, each
-    with its own name and hash, and nr5 only on BLS12-377's base field,
-    whose Fr shares BN254's w8 builds; an empty list of builds starts
-    no nvcc."""
+    Fr an 8-word lazy scalar field; the builds are 35 libraries (27
+    before BW6-761's eight), each with its own name and hash, and nr5
+    only on BLS12-377's base field, whose Fr shares BN254's w8 builds;
+    an empty list of builds starts no nvcc."""
     fp, fr = cuda.KERNEL_FIELDS[FP], cuda.KERNEL_FIELDS[FR]
     assert (fp.nw, fp.sound, fp.base, fp.nr) == (12, False, True, -5)
     assert (fr.nw, fr.sound, fr.base) == (8, False, False)
     assert (CURVE.fp2_nr + 5) % CURVE.fp.modulus == 0
     pairs = cuda.builds()
-    assert len(pairs) == len(set(pairs)) == 27
+    assert len(pairs) == len(set(pairs)) == 35
     names = [cuda._target(s, v).name for s, v in pairs]
-    assert len(set(names)) == 27
-    assert len({n.rsplit("-", 1)[1] for n in names}) == 27     # hashes
+    assert len(set(names)) == 35
+    assert len({n.rsplit("-", 1)[1] for n in names}) == 35     # hashes
     nr5 = [(s, v) for s, v in pairs if "nr5" in v.tag]
     assert nr5 == [(s, cuda.variant(FP)) for s in cuda.BASE_SOURCES]
     assert "-DGT_NR_ABS=5" in cuda.variant(FP).flags
@@ -106,7 +106,9 @@ def test_kernel_fields_and_builds_take_bls12_377():
     assert cuda.variant(FR).tag == "w8"
     assert cuda.builds([FP, FR])[:6] == nr5
     assert {v.nr_abs for f in cuda.KERNEL_FIELDS if f != FP
-            for v in [cuda.variant(f)]} == {1}
+            for v in [cuda.variant(f)]} == {0, 1}
+    assert [f for f in cuda.KERNEL_FIELDS
+            if cuda.variant(f).nr_abs == 0] == ["bw6_761_fp"]
     # a curve whose libraries are all built by another's list starts none
     assert cuda.start_builds([])["jobs"] == {}
 
@@ -131,22 +133,28 @@ def test_field_consts_layout(name):
 
 
 def test_the_card_takes_bls12_377_and_refuses_bw6_761():
-    """check_curve takes BLS12-377 on the card (both fields, u^2 = -5)
-    and still refuses BW6-761, as do the entry points, before any work;
-    the Fp2 kernels over BLS12-377's Fp take u^2 = -5 only."""
+    """check_curve takes BLS12-377 on the card (both fields, u^2 = -5),
+    for Groth16 and PLONK; BW6-761 for Groth16 only: PLONK over it is
+    refused before any work (K11's inverse takes 8-word fields, its Fr
+    has 12). The Fp2 kernels over BLS12-377's Fp take u^2 = -5 only;
+    BW6-761's fields take their 24- and 12-word constants."""
     card = torch.device("cuda")
     for name in ("bn254", "bls12_381", "bls12_377"):
-        cuda.check_curve(curves.CURVES[name], card)
-    with pytest.raises(ValueError):
-        cuda.check_curve(curves.CURVES["bw6_761"], card)
-    cuda.check_curve(curves.CURVES["bw6_761"], torch.device("cpu"))
+        cuda.check_curve(curves.CURVES[name], card, plonk=True)
+    cuda.check_curve(curves.CURVES["bw6_761"], card)
+    with pytest.raises(ValueError, match="by_inv"):
+        cuda.check_curve(curves.CURVES["bw6_761"], card, plonk=True)
+    cuda.check_curve(curves.CURVES["bw6_761"], torch.device("cpu"),
+                     plonk=True)
     assert kernel_field(get_ff2(FP, -5)).shape == (49,)
     assert kernel_field(get_ff(FR)).shape == (33,)
     with pytest.raises(ValueError):
         kernel_field(get_ff2(FP, -1))
-    for bad in ("bw6_761_fp", "bw6_761_fr"):
-        with pytest.raises(ValueError):
-            cuda.field_consts(bad)
+    assert [cuda.field_consts(f).shape for f in ("bw6_761_fp",
+                                                 "bw6_761_fr")] == \
+        [(97,), (49,)]
+    with pytest.raises(ValueError):
+        cuda.field_consts("grumpkin_fr")
 
 
 class _Lib:
@@ -456,7 +464,8 @@ def test_bucket_msm_against_host(g2, monkeypatch):
     hf, pts, ks = _points(g2, 12, 70 + g2)
     P = _encode_points(ff, pts, g2)
     sc = torch.as_tensor(get_ff(FR).encode_words(ks, mont=False))
-    J = msm(ff, P, sc, CURVE.fr.bits, device="cpu")
+    J = msm(ff, P, sc, CURVE.fr.bits, device="cpu",
+            b3=bucket.group_b3(CURVE, g2))
     got = groth16._to_affine_host(ff, hf, "jac", tuple(a[None] for a in J))
     assert got == host.ec_msm(hf, pts, ks)
 
@@ -513,7 +522,7 @@ def _host_ladder(ff, base_affine, nbits, scalars):
                  for v in (X, Y, Z))
 
 
-def _host_msm(ff, hf, points, scalars, nbits):
+def _host_msm(ff, hf, points, scalars, nbits, b3):
     """_msm_affine_host's result from host.ec_msm (G1 commitments)."""
     x, y, inf = (a.cpu() for a in points)
     xs, ys = ff.decode_words(x), ff.decode_words(y)

@@ -46,6 +46,7 @@ from gnark_tpu_torch.frontend import Circuit, Public, Secret
 from gnark_tpu_torch.frontend import compile_circuit, witness
 from gnark_tpu_torch.msm import msm
 from gnark_tpu_torch.msm import fixed_base
+from gnark_tpu_torch.msm.bucket import group_b3
 from gnark_tpu_torch.ntt import Domain
 
 torch.set_num_threads(2)
@@ -124,8 +125,9 @@ def _words_of_ref(ff, limbs):
 def test_kernel_fields_and_builds():
     """Each kernel field's words and class follow from its modulus; the
     builds are one library a source and variant (BN254's two fields
-    and BLS12-377's scalar field share theirs), each with its own name
-    and hash."""
+    and BLS12-377's scalar field share theirs, BW6-761's scalar field
+    BLS12-381's Fp's 12-word mont_mul), each with its own name and
+    hash."""
     for name, kf in cuda.KERNEL_FIELDS.items():
         p, big = fields.FIELDS[name], 1 << (32 * kf.nw)
         assert p.R == big and 2 * p.modulus < big, name
@@ -135,12 +137,13 @@ def test_kernel_fields_and_builds():
     assert not any(cuda.KERNEL_FIELDS[f].sound
                    for f in ("bn254_fp", "bn254_fr", FP))
     pairs = cuda.builds()
-    assert len(pairs) == len(set(pairs)) == 27
+    assert len(pairs) == len(set(pairs)) == 35
     assert cuda.variant("bn254_fp") == cuda.variant("bn254_fr")
     assert {s for s, v in pairs if v == cuda.variant("bn254_fr")} == \
         set(cuda.SOURCES)
     assert {s for s, v in pairs if v == cuda.variant(FP)} == \
-        set(cuda.BASE_SOURCES)
+        set(cuda.BASE_SOURCES) | set(cuda.sources("bw6_761_fr"))
+    assert cuda.variant(FP) == cuda.variant("bw6_761_fr")
     assert {s for s, v in pairs if v == cuda.variant(FR)} == \
         set(cuda.SCALAR_SOURCES)
     targets = [cuda._target(s, v) for s, v in pairs]
@@ -168,18 +171,20 @@ def test_field_consts_layout(name):
 
 
 def test_the_card_takes_bls12_381_only_beside_bn254():
-    """The card takes BLS12-381 beside BN254 (and BLS12-377): only a
-    card request over BW6-761 raises before any work; the CPU takes
-    every curve. BLS12-381's Fp2 kernels take u^2 = -1 only."""
+    """The card takes BLS12-381 beside BN254 (and BLS12-377, and
+    BW6-761 for Groth16): only a card request for PLONK over BW6-761
+    raises before any work; the CPU takes every curve. BLS12-381's Fp2
+    kernels take u^2 = -1 only."""
     card, cpu = torch.device("cuda"), torch.device("cpu")
     with pytest.raises(ValueError):
-        cuda.check_curve(curves.CURVES["bw6_761"], card)
+        cuda.check_curve(curves.CURVES["bw6_761"], card, plonk=True)
     for name in ("bn254", "bls12_381", "bls12_377", "bw6_761"):
-        cuda.check_curve(curves.CURVES[name], cpu)
-    for name in ("bn254", "bls12_381", "bls12_377"):
+        cuda.check_curve(curves.CURVES[name], cpu, plonk=True)
         cuda.check_curve(curves.CURVES[name], card)
+    for name in ("bn254", "bls12_381", "bls12_377"):
+        cuda.check_curve(curves.CURVES[name], card, plonk=True)
     with pytest.raises(ValueError):
-        cuda.field_consts("bw6_761_fr")
+        cuda.field_consts("babybear")
     with pytest.raises(ValueError):
         kernel_field(get_ff2(FP, -5))
     assert kernel_field(get_ff2(FP, -1)).shape == (49,)
@@ -337,7 +342,8 @@ def test_bucket_msm_against_host(g2, monkeypatch):
     hf, _, pts, ks = _points(g2, 12, 40 + g2)
     P = _encode_points(ff, pts, g2)
     sc = torch.as_tensor(get_ff(FR).encode_words(ks, mont=False))
-    J = msm(ff, P, sc, CURVE.fr.bits, device="cpu")
+    J = msm(ff, P, sc, CURVE.fr.bits, device="cpu",
+            b3=group_b3(CURVE, g2))
     got = groth16._to_affine_host(ff, hf, "jac", tuple(a[None] for a in J))
     assert got == host.ec_msm(hf, pts, ks)
 

@@ -25,7 +25,7 @@ from gnark_tpu_torch.ec import curves, host
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.msm import msm
-from gnark_tpu_torch.msm.bucket import (_b3, bucket_reduce, digit_count,
+from gnark_tpu_torch.msm.bucket import (bucket_reduce, digit_count, group_b3,
                                         reduce_geometry, window_bits)
 
 torch.set_num_threads(2)
@@ -39,6 +39,10 @@ def _group(g2):
         return (get_ff2(CURVE.fp.name, CURVE.fp2_nr), CURVE.host_g2_field,
                 CURVE.g2)
     return get_ff(CURVE.fp.name), CURVE.host_fp, CURVE.g1
+
+
+def _b3(g2):
+    return group_b3(CURVE, g2)
 
 
 def _big(rng, q):
@@ -91,7 +95,7 @@ def test_bucket_reduce_plain_matches_host(g2, c, W, filled):
         if i % 5 == 0 and r + 1 < W * B:
             pts[r + 1] = pts[r]
     P = _bucket_words(ff, hf, pts, rng, g2)
-    got = _to_affine_host(ff, hf, "proj", bucket_reduce(ff, _b3(ff), P, W, c))
+    got = _to_affine_host(ff, hf, "proj", bucket_reduce(ff, _b3(g2), P, W, c))
     live = [(i, p) for i, p in enumerate(pts) if p is not host.INF]
     want = ref_host.ec_msm(hf, [p for _, p in live],
                            [(i % B + 1) << (c * (i // B)) for i, _ in live])
@@ -103,7 +107,7 @@ def test_bucket_reduce_all_empty():
     c, W = 6, 3
     P = _bucket_words(ff, hf, [host.INF] * (W << (c - 1)),
                       np.random.default_rng(0), False)
-    got = bucket_reduce(ff, _b3(ff), P, W, c)
+    got = bucket_reduce(ff, _b3(False), P, W, c)
     assert _to_affine_host(ff, hf, "proj", got) == host.INF
 
 
@@ -150,7 +154,7 @@ def _msm_host(points, sc, c, monkeypatch, nbits=CURVE.fr.bits):
     monkeypatch.setenv("GNARK_TPU_MSM_IMPL", "bucket")
     monkeypatch.setenv("GNARK_TPU_MSM_C", str(c))
     ffp = get_ff(CURVE.fp.name)
-    P = msm(ffp, points, sc, nbits, device="cpu")
+    P = msm(ffp, points, sc, nbits, device="cpu", b3=_b3(False))
     return _to_affine_host(ffp, CURVE.host_fp, "jac",
                            tuple(a[None] for a in P))
 

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from gnark_tpu_torch import cuda
-from gnark_tpu_torch.backend import plonk_num
+from gnark_tpu_torch.backend import groth16, plonk_num
 from gnark_tpu_torch.ec import curves, host
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.backend.groth16 import _to_affine_host
@@ -44,8 +44,8 @@ from gnark_tpu_torch.ff.mont_mul import (mont_mul, mont_mul_plain,
 from gnark_tpu_torch.msm import bucket as bucket_mod
 from gnark_tpu_torch.msm.bucket import (bucket_digits, bucket_msm,
                                         bucket_msm_plain, bucket_reduce,
-                                        bucket_reduce_plain, curve_b3,
-                                        curve_b3_g2, signed_digits)
+                                        bucket_reduce_plain, group_b3,
+                                        signed_digits)
 from gnark_tpu_torch.msm.fixed_base import (affine_words, affine_words_plain,
                                             batch_scalar_mul,
                                             batch_scalar_mul_affine,
@@ -81,8 +81,8 @@ def _words(ff, n, seed, dev):
 def _group(g2):
     if g2:
         return (get_ff2(CURVE.fp.name, CURVE.fp2_nr), CURVE.host_g2_field,
-                curve_b3_g2(CURVE.fp.name), CURVE.g2)
-    return (get_ff(CURVE.fp.name), CURVE.host_fp, curve_b3(CURVE.fp.name),
+                group_b3(CURVE, True), CURVE.g2)
+    return (get_ff(CURVE.fp.name), CURVE.host_fp, group_b3(CURVE),
             CURVE.g1)
 
 
@@ -163,24 +163,31 @@ def test_bls12_377_points(dev, g2):
     _curve_points(dev, "bls12_377", g2)
 
 
+@pytest.mark.parametrize("g2", [False, True])
+def test_bw6_761_points(dev, g2):
+    """The 24-word builds (no Fp2; G2 over Fp on the G1 kernels with its
+    own b3 = 12): the ladder at 377 bits on 12-word scalars 0, 1, r - 1,
+    r and r + 2 against the host, the affine kernel against its plain
+    version, and the bucket MSM against the host."""
+    _curve_points(dev, "bw6_761", g2)
+
+
 def _curve_points(dev, cv, g2):
     c = curves.CURVES[cv]
-    ff = get_ff2(c.fp.name, c.fp2_nr) if g2 else get_ff(c.fp.name)
-    hf = c.host_g2_field if g2 else c.host_fp
-    gen = c.g2 if g2 else c.g1
+    ff, hf, b3, gen = _group_of(cv, g2)
     fr, r = get_ff(c.fr.name), c.fr.modulus
     ks = [0, 1, r - 1, r, r + 2] + [random.Random(g2).randrange(r)
                                     for _ in range(59)]
     sc = torch.as_tensor(np.frombuffer(b"".join(
-        k.to_bytes(32, "little") for k in ks), dtype=np.int32).copy(),
-        device=dev).reshape(-1, 8)
+        k.to_bytes(4 * fr.nw, "little") for k in ks), dtype=np.int32).copy(),
+        device=dev).reshape(-1, fr.nw)
     base = tuple(torch.as_tensor(ff.encode_words([v]), device=dev)
                  for v in gen)
     P = batch_scalar_mul(ff, base, c.fr.bits, sc)
     x, y = affine_words(ff, P)
     assert all(torch.equal(u, v) for u, v in
                zip((x, y), affine_words_plain(ff, P)))
-    shape = (-1, 2, ff.base.nw) if g2 else (-1, ff.nw)
+    shape = (-1, 2, ff.base.nw) if hasattr(ff, "base") else (-1, ff.nw)
     pts = _host_points_of(ff, hf, x, y, P[2], shape)
     assert pts == [host.ec_mul(hf, gen, k % r) for k in ks]
     rng = random.Random(7 + g2)
@@ -188,7 +195,7 @@ def _curve_points(dev, cv, g2):
     ms[1], ms[2] = 0, r - 1
     inf = (P[2] == 0).all(-1)
     kind, R = msm_raw(ff, (x, y, inf), torch.as_tensor(
-        fr.encode_words(ms, mont=False), device=dev), c.fr.bits)
+        fr.encode_words(ms, mont=False), device=dev), c.fr.bits, b3=b3)
     assert _to_affine_host(ff, hf, kind, R) == host.ec_msm(hf, pts, ms)
 
 
@@ -196,9 +203,9 @@ def _group_of(cv, g2):
     """(ff, host field, b3, generator) of curve cv's G1 or G2."""
     c = curves.CURVES[cv]
     if g2:
-        return (get_ff2(c.fp.name, c.fp2_nr), c.host_g2_field,
-                curve_b3_g2(c.fp.name), c.g2)
-    return get_ff(c.fp.name), c.host_fp, curve_b3(c.fp.name), c.g1
+        return (groth16._g2_field(c), c.host_g2_field, group_b3(c, True),
+                c.g2)
+    return get_ff(c.fp.name), c.host_fp, group_b3(c), c.g1
 
 
 @pytest.mark.parametrize("g2", [False, True])
@@ -208,7 +215,17 @@ def test_bls12_377_point_kernels(dev, g2):
     [p, 2p)) and on random words; K4 at c = 8 and 13 and K9 on its sums
     against their plain versions as group elements, and K9 against the
     host's MSM."""
-    cv = "bls12_377"
+    _point_kernels(dev, "bls12_377", g2)
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_bw6_761_point_kernels(dev, g2):
+    """As test_bls12_377_point_kernels on BW6-761's 24-word builds, G2
+    over Fp through the G1 kernels with G2's b3."""
+    _point_kernels(dev, "bw6_761", g2)
+
+
+def _point_kernels(dev, cv, g2):
     c = curves.CURVES[cv]
     ff, hf, b3, gen = _group_of(cv, g2)
     rng = random.Random(21 + g2)
@@ -227,8 +244,9 @@ def test_bls12_377_point_kernels(dev, g2):
     for i in range(8):
         assert _to_affine_host(ff, hf, "jac", tuple(a[i:i + 1] for a in got)) \
             == host.ec_add(hf, P[i], Q[i])
+    f2 = hasattr(ff, "base")
     Qx, Qy = (torch.as_tensor(ff.encode_words(
-        [((1, 0) if g2 else 1) if q is host.INF else q[k] for q in Q]),
+        [((1, 0) if f2 else 1) if q is host.INF else q[k] for q in Q]),
         device=dev).reshape(n, -1) for k in (0, 1))
     mask = torch.as_tensor([q is host.INF for q in Q], device=dev)
     got = jac_add_mixed(ff, Pw, Qx, Qy, mask)
@@ -244,7 +262,7 @@ def test_bls12_377_point_kernels(dev, g2):
     assert all(torch.equal(u, v) for u, v in
                zip(jac_fold(ff, Pw, G, B), jac_fold_plain(ff, Pw, G, B)))
     m = 500
-    R6 = tuple(_words(ff.base if g2 else ff, 2 * m if g2 else m, s, dev)
+    R6 = tuple(_words(ff.base if f2 else ff, 2 * m if f2 else m, s, dev)
                .reshape(m, -1) for s in range(6))
     for fn, pfn, args in ((jac_add, jac_add_plain, (R6[:3], R6[3:])),
                           (proj_add, proj_add_plain, (R6[:3], R6[3:])),
@@ -310,6 +328,67 @@ def test_bls12_377_proofs_card_equal_cpu(dev):
                        device="cpu")
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert plonk.verify(got, vk, pub)
+
+
+def test_bw6_761_scalar_field_kernels(dev):
+    """BW6-761's 12-word scalar field: K1's product and (a*b - c)*d on
+    lazy inputs, K5 whole transforms from 2^1 to 2^13, K2 four-step
+    transforms at 2^12 and 2^13 (rows of 2^7 and 2^6) and rows of 2^12
+    (a global pass, then 2^11 segments: 2^12 does not fit a block at 12
+    words), each against its plain version, bit-exact."""
+    f = get_ff("bw6_761_fr")
+    n = 5000
+    a, b = _lazy_words(f, n, 3, dev), _lazy_words(f, n, 4, dev)
+    for bb in (b, b[:1]):
+        assert torch.equal(mont_mul(f, a, bb), mont_mul_plain(f, a, bb))
+        assert torch.equal(mont_mul_sub_mul(f, a, b, a, bb),
+                           mont_mul_sub_mul_plain(f, a, b, a, bb))
+    for k in range(1, 14):
+        m = 1 << k
+        tw = torch.as_tensor(np.concatenate(stage_twiddles(
+            f, m, f.p.root_of_unity(m))), device=dev)
+        x = _lazy_words(f, m, k, dev)
+        assert torch.equal(radix2_ntt(f, x, tw), radix2_ntt_plain(f, x, tw))
+    for k in (12, 13):
+        plan = FourStep(f, 1 << k, f.p.root_of_unity(1 << k), dev)
+        x = _lazy_words(f, 1 << k, 20 + k, dev)
+        assert torch.equal(fourstep_ntt(plan, x, x, x[:1]),
+                           fourstep_ntt_plain(plan, x, x, x[:1]))
+    S = 1 << 12
+    assert fourstep.row_plan(S, f.nw) == ((1,), 11)
+    pw = torch.as_tensor(root_powers(f, S, f.p.root_of_unity(S)),
+                         device=dev)
+    xr = _lazy_words(f, 4 * S, 31, dev).reshape(4, S, f.nw)
+    assert torch.equal(row_fft(f, xr, pw), row_fft_plain(f, xr, pw))
+
+
+def test_bw6_761_proof_card_equals_cpu(dev):
+    """The cubic over BW6-761: the Groth16 setup and prove on the card
+    equal the CPU's under the same seeds (keys and proof), and both
+    verify; PLONK over BW6-761 on the card raises before any work."""
+    from gnark_tpu_torch import fields
+    from gnark_tpu_torch.backend import kzg, plonk
+    from gnark_tpu_torch.backend.groth16_check import Cubic
+    from gnark_tpu_torch.frontend import compile_circuit, witness
+    from gnark_tpu_torch.frontend.scs import SCSBuilder
+
+    cs = compile_circuit(Cubic(), fields.BW6_761_FR)
+    pub, sec = witness(Cubic(x=3, y=35), cs)
+    proofs, keys = {}, {}
+    for d in (dev, "cpu"):
+        rng = random.Random(61)
+        pk, vk = groth16.setup(cs, "bw6_761", rng=rng, device=d)
+        keys[d] = [a.cpu() for k in ("g1_a", "g1_b", "g1_z", "g1_k", "g2_b")
+                   for a in getattr(pk, k)]
+        proofs[d] = groth16.prove(cs, pk, pub, sec, rng=rng, device=d)
+        assert groth16.verify(proofs[d], vk, pub)
+        assert not groth16.verify(proofs[d], vk, [36])
+    assert all(torch.equal(u, v) for u, v in zip(keys[dev], keys["cpu"]))
+    assert proofs[dev] == proofs["cpu"]
+    cs = compile_circuit(Cubic(), fields.BW6_761_FR, builder_cls=SCSBuilder)
+    srs = kzg.setup_srs("bw6_761", 16, rng=random.Random(43), device=dev)
+    with pytest.raises(ValueError, match="by_inv"):
+        plonk.setup(cs, srs)
 
 
 def _host_points_of(ff, hf, x, y, Z, shape):
@@ -529,12 +608,14 @@ def test_chunked_msm_matches_single(dev, g2, monkeypatch):
     ks = [rng.randrange(CURVE.fr.modulus) for _ in range(n)]
     sc = torch.as_tensor(get_ff(CURVE.fr.name).encode_words(ks, mont=False),
                          device=dev)
-    one = bucket_mod.msm_proj(ff, (x, y, inf), sc, CURVE.fr.bits)
+    one = bucket_mod.msm_proj(ff, (x, y, inf), sc, CURVE.fr.bits,
+                              b3=group_b3(CURVE, g2))
     monkeypatch.setattr(bucket_mod, "MAX_PAIRS", 6000)
     plan = bucket_mod.chunk_plan(n, CURVE.fr.bits, dev)
     assert len(plan) > 1
     before = bucket_msm.launches
-    chunked = bucket_mod.msm_proj(ff, (x, y, inf), sc, CURVE.fr.bits)
+    chunked = bucket_mod.msm_proj(ff, (x, y, inf), sc, CURVE.fr.bits,
+                                  b3=group_b3(CURVE, g2))
     assert bucket_msm.launches - before == len(plan)
     assert _to_affine_host(ff, hf, "proj", chunked) == \
         _to_affine_host(ff, hf, "proj", one) != host.INF
@@ -621,10 +702,12 @@ def test_seg_smem_matches_kernel(dev):
     """fourstep.seg_smem_bytes, the host's copy of the segment block's
     shared-memory size that the row_plan fault tests read, against the
     kernel's own formula (gt_fs_smem) at every segment log."""
-    smem = cuda.lib("row_fft", "bn254_fr").gt_fs_smem
-    smem.restype = ctypes.c_longlong
-    for G in range(1, fourstep.SMEM_LOG + 1):
-        assert smem(G) == fourstep.seg_smem_bytes(G), G
+    for field in ("bn254_fr", "bw6_761_fr"):         # 8 and 12 words
+        smem = cuda.lib("row_fft", field).gt_fs_smem
+        smem.restype = ctypes.c_longlong
+        nw = cuda.KERNEL_FIELDS[field].nw
+        for G in range(1, fourstep.SMEM_LOG + 1):
+            assert smem(G) == fourstep.seg_smem_bytes(G, nw), (field, G)
 
 
 @pytest.mark.parametrize("g2", [False, True])
@@ -926,7 +1009,8 @@ def test_scan_msm_matches_bucket(dev, g2, monkeypatch):
     out = {}
     for impl in ("scan", "bucket"):
         monkeypatch.setenv("GNARK_TPU_MSM_IMPL", impl)
-        kind, P = msm_raw(ff, (x, y, inf), sc, CURVE.fr.bits)
+        kind, P = msm_raw(ff, (x, y, inf), sc, CURVE.fr.bits,
+                          b3=group_b3(CURVE, g2))
         assert kind == ("jac" if impl == "scan" else "proj")
         out[impl] = _to_affine_host(ff, hf, kind, P)
     assert out["scan"] == out["bucket"] != host.INF

@@ -26,7 +26,7 @@ from gnark_tpu_torch.ec.weierstrass import (jac_add, jac_inf,
                                             jac_to_affine, proj_to_jac,
                                             to_limbs)
 from gnark_tpu_torch.ff import get_ff
-from gnark_tpu_torch.msm.bucket import curve_b3, curve_b3_g2
+from gnark_tpu_torch.msm.bucket import group_b3
 
 torch.set_num_threads(2)
 
@@ -37,7 +37,7 @@ Q = CURVE.fp.modulus
 def _group(g2):
     ff = get_ff2(CURVE.fp.name, CURVE.fp2_nr) if g2 else get_ff(CURVE.fp.name)
     hf = CURVE.host_g2_field if g2 else CURVE.host_fp
-    b3 = curve_b3_g2(CURVE.fp.name) if g2 else curve_b3(CURVE.fp.name)
+    b3 = group_b3(CURVE, g2)
     return ff, hf, b3, (CURVE.g2 if g2 else CURVE.g1)
 
 

@@ -107,7 +107,7 @@ def test_kernel_constants_use_32bit_redc():
         assert sum(int(c[i]) << (32 * i) for i in range(8)) == p
         assert sum(int(c[8 + i]) << (32 * i) for i in range(8)) == 2 * p
     with pytest.raises(ValueError):
-        cuda.field_consts("bw6_761_fp")
+        cuda.field_consts("koalabear")
 
 
 def test_kernel_constants_end_with_r_cubed():

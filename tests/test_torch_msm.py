@@ -20,7 +20,8 @@ from gnark_tpu_torch.ec import curves, host
 from gnark_tpu_torch.ec.weierstrass import jac_to_affine, to_limbs
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.msm import msm, window_digits
-from gnark_tpu_torch.msm.bucket import SEG, group_pairs, signed_digits
+from gnark_tpu_torch.msm.bucket import (SEG, group_b3, group_pairs,
+                                        signed_digits)
 from gnark_tpu_torch.msm.pippenger import scalar_limbs
 
 torch.set_num_threads(2)
@@ -110,5 +111,6 @@ def test_msm_g1_matches_host(n):
     pts, ks = _g1_case(n, 23 + n)
     points, sc = _g1_inputs(pts, ks)
     ffp = get_ff(CURVE.fp.name)
-    got = _affine(ffp, msm(ffp, points, sc, CURVE.fr.bits, device="cpu"))
+    got = _affine(ffp, msm(ffp, points, sc, CURVE.fr.bits, device="cpu",
+                           b3=group_b3(CURVE)))
     assert got == host.ec_msm(CURVE.host_fp, pts, ks)

@@ -18,7 +18,7 @@ from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.ec.weierstrass import jac_to_affine, to_limbs
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.msm import msm
-from gnark_tpu_torch.msm.bucket import msm_bucket_chunked
+from gnark_tpu_torch.msm.bucket import group_b3, msm_bucket_chunked
 
 torch.set_num_threads(2)
 
@@ -67,7 +67,8 @@ def test_msm_g1_matches_reference():
     pts, ks = _g1_case(n, 31)
     points, sc = _g1_inputs(pts, ks)
     ffp = get_ff(CURVE.fp.name)
-    got = _affine(ffp, msm(ffp, points, sc, CURVE.fr.bits, device="cpu"))
+    got = _affine(ffp, msm(ffp, points, sc, CURVE.fr.bits, device="cpu",
+                           b3=group_b3(CURVE)))
     rffp, rffr = ref_get_ff(CURVE.fp.name), ref_get_ff(CURVE.fr.name)
     rpts = tuple(jnp.asarray(ffp.from_words(a).numpy().astype(np.uint32))
                  for a in points[:2]) + (jnp.asarray(points[2].numpy()),)
@@ -92,7 +93,8 @@ def test_msm_g2_matches_host():
     y = torch.as_tensor(ff2.encode_words([p[1] for p in pts]))
     sc = torch.as_tensor(get_ff(CURVE.fr.name).encode_words(ks, mont=False))
     got = _affine(ff2, msm(ff2, (x, y, torch.zeros(n, dtype=torch.bool)),
-                           sc, CURVE.fr.bits, device="cpu"))
+                           sc, CURVE.fr.bits, device="cpu",
+                           b3=group_b3(CURVE, g2=True)))
     assert got == host.ec_msm(f2h, pts, ks)
 
 
@@ -101,5 +103,6 @@ def test_msm_chunked_matches_host():
     points, sc = _g1_inputs(pts, ks)
     ffp = get_ff(CURVE.fp.name)
     chunked = _affine(ffp, msm_bucket_chunked(ffp, points, sc,
-                                              CURVE.fr.bits, chunk=7))
+                                              CURVE.fr.bits, chunk=7,
+                                              b3=group_b3(CURVE)))
     assert chunked == host.ec_msm(CURVE.host_fp, pts, ks)

@@ -33,6 +33,7 @@ from gnark_tpu_torch.ec.jac_ec import jac_add_plain, jac_fold, jac_fold_plain
 from gnark_tpu_torch.ec.fp2 import get_ff2
 from gnark_tpu_torch.ff import get_ff
 from gnark_tpu_torch.msm import pippenger
+from gnark_tpu_torch.msm.bucket import group_b3
 from gnark_tpu_torch.msm.pippenger import msm_raw
 
 torch.set_num_threads(2)
@@ -76,7 +77,8 @@ def _msm(g2, pts, ks, impl, monkeypatch, c=None, groups=None):
     ff, hf, _ = _group(g2)
     monkeypatch.setenv("GNARK_TPU_MSM_IMPL", impl)
     points, sc = _inputs(ff, pts, ks)
-    kind, P = msm_raw(ff, points, sc, CURVE.fr.bits, c, groups)
+    kind, P = msm_raw(ff, points, sc, CURVE.fr.bits, c, groups,
+                      b3=group_b3(CURVE, g2))
     assert kind == ("jac" if impl == "scan" else "proj")
     return _to_affine_host(ff, hf, kind, P)
 
@@ -95,28 +97,28 @@ def test_scan_g1_matches_host(n, c, g, monkeypatch):
 
 def test_routing(monkeypatch):
     """bucket and auto take the bucket path (on the CPU too), scan the
-    scan path, anything else raises; a group without an a = 0 curve
-    takes the scan path."""
+    scan path, anything else raises; a group given no b3 (no a = 0
+    curve) takes the scan path."""
     calls = []
     monkeypatch.setattr(pippenger, "_msm_scan",
                         lambda *a: calls.append("scan") or "S")
     import gnark_tpu_torch.msm.bucket as bucket
     monkeypatch.setattr(bucket, "msm_proj",
-                        lambda *a: calls.append("bucket") or "B")
+                        lambda *a, **k: calls.append("bucket") or "B")
     ff, _, _ = _group(False)
+    b3 = group_b3(CURVE)
     points, sc = _inputs(ff, *_case(False, 3, 2))
     for impl, want in (("auto", "proj"), ("bucket", "proj"),
                        ("scan", "jac")):
         monkeypatch.setenv("GNARK_TPU_MSM_IMPL", impl)
-        assert msm_raw(ff, points, sc, CURVE.fr.bits)[0] == want
+        assert msm_raw(ff, points, sc, CURVE.fr.bits, b3=b3)[0] == want
     monkeypatch.delenv("GNARK_TPU_MSM_IMPL")
-    assert msm_raw(ff, points, sc, CURVE.fr.bits)[0] == "proj"
-    monkeypatch.setattr(pippenger, "_bucket_curve", lambda f: False)
-    assert msm_raw(ff, points, sc, CURVE.fr.bits)[0] == "jac"
+    assert msm_raw(ff, points, sc, CURVE.fr.bits, b3=b3)[0] == "proj"
+    assert msm_raw(ff, points, sc, CURVE.fr.bits, b3=None)[0] == "jac"
     assert calls == ["bucket", "bucket", "scan", "bucket", "scan"]
     monkeypatch.setenv("GNARK_TPU_MSM_IMPL", "pallas")
     with pytest.raises(ValueError):
-        msm_raw(ff, points, sc, CURVE.fr.bits)
+        msm_raw(ff, points, sc, CURVE.fr.bits, b3=b3)
 
 
 def test_pick_params_matches_reference():
